@@ -9,9 +9,19 @@ MODULES = [
     "ubteacher_tpu_torch.config",
     "ubteacher_tpu_torch.data.augment",
     "ubteacher_tpu_torch.engine",
+    "ubteacher_tpu_torch.engine.rcnn_trainer",
+    "ubteacher_tpu_torch.modeling.anchors",
+    "ubteacher_tpu_torch.modeling.box_regression",
+    "ubteacher_tpu_torch.modeling.fast_rcnn",
     "ubteacher_tpu_torch.modeling.fcos_head",
+    "ubteacher_tpu_torch.modeling.matcher",
+    "ubteacher_tpu_torch.modeling.rcnn",
+    "ubteacher_tpu_torch.modeling.rpn",
     "ubteacher_tpu_torch.ops.kernels",
+    "ubteacher_tpu_torch.ops.kernels.build",
     "ubteacher_tpu_torch.ops.nms",
+    "ubteacher_tpu_torch.ops.roi_align",
+    "ubteacher_tpu_torch.ops.row_gather",
     "ubteacher_tpu_torch.solver",
     "ubteacher_tpu_torch.structures",
 ]

@@ -1,7 +1,9 @@
-"""Shared helpers of the test_torch_* parity tests: the same small FCOS
-configuration in both packages, the JAX model with its parameters carried
-into the port through params_from_jax, seeded synthetic batches, and a replay
-of the JAX strong augmentation's key splits as port draws."""
+"""Shared helpers of the test_torch_* parity tests: the same small FCOS and
+Faster R-CNN configurations in both packages, the JAX models with their
+parameters carried into the port through params_from_jax, seeded synthetic
+batches, replays of the JAX package's key splits (strong augmentation,
+R-CNN sampling) as port draws, and one R-CNN train step of each package
+from one setup."""
 
 from __future__ import annotations
 
@@ -176,3 +178,261 @@ def jax_strong_draws(key, b, h, w):
         apply_erase=torch.tensor(fields["apply_erase"]),
         erase_noise=torch.from_numpy(np.stack(fields["erase_noise"])),
     )
+
+
+# --------------------------------------------------------------------------
+# Faster R-CNN
+# --------------------------------------------------------------------------
+
+RCNN_CFG_PATH = os.path.join(
+    os.path.dirname(__file__), "..", "configs", "Faster-RCNN", "coco-standard",
+    "faster_rcnn_R_50_FPN_ut2_sup1_run0.yaml",
+)
+
+# small size of tests/test_rcnn.py (_rcnn_tiny_cfg): depth 18, 3 classes,
+# float32, a 64x64 canvas
+RCNN_SMALL_OPTS = [
+    "MODEL.ROI_HEADS.NUM_CLASSES", "3",
+    "MODEL.RESNETS.DEPTH", "18",
+    "MODEL.RPN.POST_NMS_TOPK_TRAIN", "64",
+    "MODEL.RPN.POST_NMS_TOPK_TEST", "64",
+    "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "32",
+    "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "64",
+    "TEST.DETECTIONS_PER_IMAGE", "20",
+    "TPU.COMPUTE_DTYPE", "float32",
+    "TPU.MAX_GT", "8",
+    "TPU.MAX_PSEUDO", "20",
+    "TPU.NMS_CANDIDATES", "100",
+    "SEMISUPNET.BURN_UP_STEP", "1",
+]
+RCNN_CANVAS = (64, 64)
+
+
+def small_rcnn_cfgs(extra_opts=()):
+    """(JAX cfg, port cfg) of the shipped Faster R-CNN recipe cut to test
+    size."""
+    from ubteacher_tpu.config import add_ubteacher_config, get_cfg
+    from ubteacher_tpu_torch.config import add_ubteacher_config as t_add, get_cfg as t_get
+
+    out = []
+    for get, add in ((get_cfg, add_ubteacher_config), (t_get, t_add)):
+        cfg = get()
+        add(cfg)
+        cfg.merge_from_file(RCNN_CFG_PATH)
+        cfg.merge_from_list(RCNN_SMALL_OPTS + list(extra_opts))
+        cfg.freeze()
+        out.append(cfg)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_rcnn_init(cfg_yaml: str, seed: int):
+    from ubteacher_tpu.config import CfgNode
+    from ubteacher_tpu.modeling.rcnn import build_two_stage_rcnn
+
+    cfg = CfgNode(yaml.safe_load(cfg_yaml))
+    model = build_two_stage_rcnn(cfg)
+    h, w = RCNN_CANVAS
+    return model, _numpy_tree(jax.jit(model.init)(jax.random.PRNGKey(seed), jnp.zeros((1, h, w, 3)))["params"])
+
+
+def jax_rcnn_model_and_params(cfg, seed=0, cls_bias=None):
+    """JAX TwoStageRCNN and float32 numpy params (a fresh copy per call);
+    `cls_bias` overrides the box predictor's cls_score bias (a random-init
+    teacher otherwise passes no box through BBOX_THRESHOLD)."""
+    model, params = _jax_rcnn_init(cfg.dump(), seed)
+    params = _numpy_tree(params)
+    if cls_bias is not None:
+        params["box_predictor"]["cls_score"]["bias"] = np.asarray(cls_bias, np.float32)
+    return model, params
+
+
+def port_rcnn_model(cfg, params):
+    """The port's TwoStageRCNN on the CPU with the JAX parameters loaded."""
+    from ubteacher_tpu_torch.checkpoint import params_from_jax
+    from ubteacher_tpu_torch.modeling.rcnn import build_two_stage_rcnn
+
+    model = build_two_stage_rcnn(cfg)
+    missing, unexpected = model.load_state_dict(params_from_jax(params), strict=True)
+    assert not missing and not unexpected
+    return model
+
+
+def jax_sampling_draws(key, b, num_anchors, num_props):
+    """The uniforms one JAX R-CNN branch draws from `key`
+    (rcnn_trainer.py:141-152): per image, the RPN's positive and negative
+    anchor priorities (rpn.py:155-166) and the box head's positive and
+    negative proposal priorities (fast_rcnn.py:124-135), as the port's
+    SamplingDraws."""
+    from ubteacher_tpu_torch.engine.rcnn_trainer import SamplingDraws
+
+    k_anchor, k_sample = jax.random.split(key)
+
+    def draws(k_branch, n):
+        return np.asarray([[np.asarray(jax.random.uniform(k, (n,))) for k in jax.random.split(ki)]
+                           for ki in jax.random.split(k_branch, b)], np.float32)
+
+    return SamplingDraws(torch.from_numpy(draws(k_anchor, num_anchors)),
+                         torch.from_numpy(draws(k_sample, num_props)))
+
+
+def identity_strong_draws(b, h, w):
+    """StrongAugParams that apply nothing (every apply flag False)."""
+    from ubteacher_tpu_torch.data.augment import ERASE_PASSES, StrongAugParams
+
+    n = len(ERASE_PASSES)
+    return StrongAugParams(
+        jitter=torch.ones((b, 4)), apply_jitter=torch.zeros(b, dtype=torch.bool),
+        apply_gray=torch.zeros(b, dtype=torch.bool), sigma=torch.ones(b),
+        apply_blur=torch.zeros(b, dtype=torch.bool),
+        erase_box=torch.ones((b, n, 4), dtype=torch.long),
+        apply_erase=torch.zeros((b, n), dtype=torch.bool),
+        erase_noise=torch.zeros((b, n, h, w, 3)),
+    )
+
+
+# --------------------------------------------------------------------------
+# Faster R-CNN train steps: both packages from one setup
+# --------------------------------------------------------------------------
+
+RCNN_B = 2
+RCNN_SEED = 0
+RCNN_RNG_KEY = 11
+# class 0's cls_score bias: softmax 0.80 against 3 others passes
+# BBOX_THRESHOLD 0.7, so a random-init teacher yields pseudo boxes
+RCNN_CLS_BIAS = (2.5, 0.0, 0.0, 0.0)
+RCNN_NUM_ANCHORS = {(64, 64): 1023, (96, 64): 1536}
+
+
+def rcnn_batch(seed, b, h, w, max_gt):
+    """numpy images in [0, 255] and padded gt: 2 boxes on image 0, 3 on 1,
+    with teacher-like scores and boundary logits (for the oracle pseudo
+    set)."""
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((b, max_gt, 4), np.float32)
+    boxes[:, 0] = [6, 8, 40, 38]
+    boxes[:, 1] = [24, 20, 60, 58]
+    boxes[1, 2] = [2, 30, 22, 62]
+    boxes[..., 1::2] *= h / 64.0
+    classes = rng.integers(0, 3, (b, max_gt)).astype(np.int32)
+    mask = np.zeros((b, max_gt), bool)
+    mask[0, :2] = True
+    mask[1, :3] = True
+    scores = rng.uniform(0.7, 1.0, (b, max_gt)).astype(np.float32)
+    box_std = rng.normal(-2.0, 1.5, (b, max_gt, 4)).astype(np.float32)
+    images = rng.normal(110, 40, (b, h, w, 3)).clip(0, 255).astype(np.float32)
+    return images, (boxes, classes, scores, box_std, mask)
+
+
+def _both_instances(boxes, classes, scores, box_std, mask):
+    from ubteacher_tpu.structures import PaddedInstances as JP
+    from ubteacher_tpu_torch.structures import PaddedInstances as TP
+
+    j = JP(jnp.asarray(boxes), jnp.asarray(classes), jnp.asarray(scores), jnp.asarray(box_std),
+           jnp.asarray(mask))
+    t = TP(torch.from_numpy(boxes), torch.from_numpy(classes).long(), torch.from_numpy(scores),
+           torch.from_numpy(box_std), torch.from_numpy(mask))
+    return j, t
+
+
+def rcnn_setup(unlabel_hw=RCNN_CANVAS, extra_opts=()):
+    """(jcfg, tcfg, JAX model, params, JAX batch, port batch). The labeled
+    gt has unit scores and zero boundary logits; `gt_unlabel` (used under
+    TPU.ORACLE_PSEUDO) has MAX_PSEUDO slots with teacher-like ones. The
+    port's batch carries strong draws that apply nothing."""
+    jcfg, tcfg = small_rcnn_cfgs(extra_opts)
+    jmodel, params = jax_rcnn_model_and_params(jcfg, seed=RCNN_SEED, cls_bias=RCNN_CLS_BIAS)
+    b = RCNN_B
+    images_l, (boxes, classes, _, _, mask) = rcnn_batch(RCNN_SEED + 100, b, *RCNN_CANVAS, jcfg.TPU.MAX_GT)
+    images_u, gt_u = rcnn_batch(RCNN_SEED + 200, b, *unlabel_hw, jcfg.TPU.MAX_PSEUDO)
+    ones, zeros = np.ones(mask.shape, np.float32), np.zeros(mask.shape + (4,), np.float32)
+    jg, tg = _both_instances(boxes, classes, ones, zeros, mask)
+    jgu, tgu = _both_instances(*gt_u)
+    jbatch = {
+        "images_label_k": jnp.asarray(images_l), "gt_label": jg,
+        "images_unlabel_k": jnp.asarray(images_u), "gt_unlabel": jgu,
+        "rng": jax.random.PRNGKey(RCNN_RNG_KEY),
+    }
+    tbatch = {
+        "images_label_k": torch.from_numpy(images_l), "gt_label": tg,
+        "images_unlabel_k": torch.from_numpy(images_u), "gt_unlabel": tgu,
+        "strong_label": identity_strong_draws(b, *RCNN_CANVAS),
+        "strong_unlabel": identity_strong_draws(b, *unlabel_hw),
+    }
+    return jcfg, tcfg, jmodel, params, jbatch, tbatch
+
+
+def hold_jax_rcnn_step(monkeypatch):
+    """The JAX step with the identity for its strong augmentation (the JAX
+    augmentation runs in bfloat16, the port's in float32; a bf16 ulp in a
+    strong image would move an RPN top-k or NMS cut) and its anchor matcher
+    on the XLA formulation (method="xla"): on the CPU its default runs the
+    interpreted Pallas matcher, which promotes more anchors than the XLA
+    matcher on border-clipped, thin boxes (ROADMAP Queue C); the port's
+    matcher is the XLA one, bitwise."""
+    import ubteacher_tpu.engine.rcnn_trainer as jrt
+
+    monkeypatch.setattr(jrt, "strong_augment", lambda images, key: images)
+    monkeypatch.setattr(jrt, "match_anchors_batched",
+                        functools.partial(jrt.match_anchors_batched, method="xla"))
+
+
+def jax_rcnn_step(jcfg, jmodel, params, jbatch, which, step):
+    """One JAX burnin or mutual step -> (student, teacher, metrics)."""
+    from ubteacher_tpu.engine import FCOSTrainState
+    from ubteacher_tpu.engine.rcnn_trainer import make_rcnn_train_steps
+    from ubteacher_tpu.solver import build_optimizer
+
+    jparams = jax.tree.map(jnp.asarray, params)
+    tx = build_optimizer(jcfg, jparams)
+    burnin, mutual = make_rcnn_train_steps(jcfg, jmodel, tx)
+    state = FCOSTrainState.create(jparams, tx).replace(step=jnp.asarray(step, jnp.int32))
+    new_state, metrics = (burnin if which == "burnin" else mutual)(state, jbatch)
+    to_np = lambda t: jax.tree.map(np.asarray, jax.device_get(t))  # noqa: E731
+    return to_np(new_state.student), to_np(new_state.teacher), {
+        k: float(v) for k, v in jax.device_get(metrics).items()
+    }
+
+
+def port_rcnn_step(tcfg, params, tbatch, which, step):
+    """One port burnin or mutual step -> (state, metrics)."""
+    from ubteacher_tpu_torch.engine.rcnn_trainer import RCNNTrainState, make_rcnn_train_steps
+    from ubteacher_tpu_torch.solver import build_optimizer
+
+    model = port_rcnn_model(tcfg, params)
+    state = RCNNTrainState.create(model, build_optimizer(tcfg, model))
+    state.step = step
+    burnin, mutual = make_rcnn_train_steps(tcfg)
+    state, metrics = (burnin if which == "burnin" else mutual)(state, tbatch)
+    return state, {k: float(v) for k, v in metrics.items()}
+
+
+def compare_rcnn_updates(port_module, jax_tree, init_tree, what):
+    """Updates (new - initial): equal where JAX leaves a parameter untouched
+    (frozen), within 1e-2 of the JAX update's norm per tensor and 1e-3 over
+    the whole model."""
+    from ubteacher_tpu_torch.checkpoint import params_from_jax
+
+    ref = params_from_jax(jax_tree)
+    init = params_from_jax(init_tree)
+    got = port_module.state_dict()
+    assert set(ref) == set(got), what
+    num = den = 0.0
+    for name, r in ref.items():
+        dj = r.double() - init[name].double()
+        dt = got[name].double() - init[name].double()
+        if not dj.any():
+            assert not dt.any(), f"{what} {name} moved"
+            continue
+        err = float((dt - dj).norm() / dj.norm())
+        assert err < 1e-2, f"{what} {name}: {err}"
+        num += float((dt - dj).norm() ** 2)
+        den += float(dj.norm() ** 2)
+    assert den > 0, f"{what}: nothing moved"
+    assert (num / den) ** 0.5 < 1e-3, f"{what}: {(num / den) ** 0.5}"
+
+
+def compare_rcnn_metrics(port, ref):
+    """Every JAX metric (the port adds sample counts of its own)."""
+    for k, v in ref.items():
+        np.testing.assert_allclose(port[k], v, rtol=1e-4, atol=1e-6, err_msg=k)

@@ -1,6 +1,7 @@
-"""Feature Pyramid Network with the FCOS P6/P7 top block (PyTorch port of
-ubteacher_tpu.modeling.fpn). P6 is a stride-2 conv fed from p5, P7 a stride-2
-conv of relu(p6) (reference backbone/fpn.py:65)."""
+"""Feature Pyramid Network (PyTorch port of ubteacher_tpu.modeling.fpn), with
+the FCOS P6/P7 top block (P6 a stride-2 conv fed from p5, P7 a stride-2 conv
+of relu(p6), reference backbone/fpn.py:65) or the Faster R-CNN one (P6 a
+1x1-window, stride-2 max pool of p5, detectron2 LastLevelMaxPool)."""
 
 from __future__ import annotations
 
@@ -19,16 +20,18 @@ class FPN(nn.Module):
     def __init__(self, in_channels: Dict[str, int], in_features: Sequence[str] = ("res3", "res4", "res5"),
                  out_channels: int = 256, top_block: str = "p6p7", fuse_type: str = "sum"):
         super().__init__()
-        if top_block != "p6p7":
-            raise ValueError(f"the port implements only the p6p7 top block, got {top_block!r}")
+        if top_block not in ("p6p7", "maxpool"):
+            raise ValueError(f"top_block must be 'p6p7' or 'maxpool', got {top_block!r}")
+        self.top_block = top_block
         self.in_features = tuple(in_features)
         self.stages = [int(f[3:]) for f in self.in_features]
         self.fuse_type = fuse_type
         for f, s in zip(self.in_features, self.stages):
             self.add_module(f"fpn_lateral{s}", nn.Conv2d(in_channels[f], out_channels, 1))
             self.add_module(f"fpn_output{s}", nn.Conv2d(out_channels, out_channels, 3, padding=1))
-        self.top_block_p6 = nn.Conv2d(out_channels, out_channels, 3, stride=2, padding=1)
-        self.top_block_p7 = nn.Conv2d(out_channels, out_channels, 3, stride=2, padding=1)
+        if top_block == "p6p7":
+            self.top_block_p6 = nn.Conv2d(out_channels, out_channels, 3, stride=2, padding=1)
+            self.top_block_p7 = nn.Conv2d(out_channels, out_channels, 3, stride=2, padding=1)
 
     def init_weights(self, generator: torch.Generator) -> None:
         for m in self.modules():
@@ -54,17 +57,20 @@ class FPN(nn.Module):
             for i, s in enumerate(self.stages)
         }
         top = self.stages[-1]
+        if self.top_block == "maxpool":
+            outputs[f"p{top + 1}"] = F.max_pool2d(outputs[f"p{top}"], kernel_size=1, stride=2)
+            return outputs
         p6 = self.top_block_p6(outputs[f"p{top}"])
         outputs[f"p{top + 1}"] = p6
         outputs[f"p{top + 2}"] = self.top_block_p7(F.relu(p6))
         return outputs
 
 
-def fpn_from_cfg(cfg, in_channels: Dict[str, int]) -> FPN:
+def fpn_from_cfg(cfg, in_channels: Dict[str, int], top_block: str = "p6p7") -> FPN:
     return FPN(
         in_channels=in_channels,
         in_features=tuple(cfg.MODEL.FPN.IN_FEATURES),
         out_channels=cfg.MODEL.FPN.OUT_CHANNELS,
-        top_block="p6p7",
+        top_block=top_block,
         fuse_type=cfg.MODEL.FPN.FUSE_TYPE,
     )

@@ -10,63 +10,29 @@ sweep per image, with the work bounded by each image's valid count.
 Sorting, the class-offset trick and the scatter back to input order stay in
 torch (ops/nms.py), as they sit outside the Pallas call in JAX.
 
-The library is built on first use with nvcc, from the sources in this
-package only, into `ubteacher_tpu_torch/_build/`, and loaded with ctypes.
+The library is built on first use with nvcc (ops/kernels/build.py), from the
+sources in this package only, into `ubteacher_tpu_torch/_build/`, and loaded
+with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
-from typing import Tuple
 
 import torch
 
+from . import build
+
 LAUNCHES = {"nms": 0}
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "nms.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_LIBRARY = os.path.join(_BUILD_DIR, "libubt_nms.so")
 _TILE = 64
 _MAX_WORDS = 6144  # the sweep keeps one 64-bit word per tile in 48 KB of shared memory
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-
-
-def build() -> Tuple[str, str]:
-    """Compile csrc/nms.cu for sm_90a into the build directory if the library
-    is missing or older than the source. Returns the library path and the
-    compiler's register/shared-memory report (empty when nothing was built)."""
-    if os.path.exists(_LIBRARY) and os.path.getmtime(_LIBRARY) >= os.path.getmtime(_SOURCE):
-        return _LIBRARY, ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIBRARY}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SOURCE,
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, _LIBRARY)
-    return _LIBRARY, proc.stderr
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()[0])
+    lib = ctypes.CDLL(build.build("nms"))
     fn = lib.ubt_nms_keep_sorted
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
