@@ -6,7 +6,7 @@
 1. Setup: prints the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and builds the hand-written kernels from this checkout's
    sources (one nvcc per CUDA source, all started together; the Triton
-   kernels compile at their first launch).
+   kernels compile at their first launch) and the native COCO matcher (g++).
 2. Kernel phase: each kernel against its plain PyTorch version at the main
    paths' shapes, with kernel and plain times as the median of 20 runs timed
    with CUDA events. FCOS: NMS 8 images x 5000 class-offset candidates,
@@ -14,7 +14,11 @@
    Faster R-CNN: the anchor matcher over 257,796 anchors x (24, 100) gt
    slots (bitwise); ROIAlign forward and backward over p2-p5 of 24 images,
    256 channels, 512 rois per image (float32 and bfloat16); the row scatter
-   (24, 320, 3) and (24, 320, 12) into 85,932 rows.
+   (24, 320, 3) and (24, 320, 12) into 85,932 rows. Evaluation: the fused
+   stem over 8 images at 800x1344 and 1344x800, float32 and bfloat16, beside
+   the port's conv-mode stem. Each row also carries the card's bound for the
+   same work and, where one PyTorch call computes the same function, that
+   call's time.
 3. FCOS reference phase: one mutual step at a small size (the CPU parity
    tests' configuration) on the card through the kernels and on the CPU
    through the plain versions, from the same weights, batch and augmentation
@@ -36,6 +40,23 @@
    768x1344, 8+8 images, random weights from a seed: one burn-in step, the
    boundary copy and three mutual steps, with exact launch counts of the
    R-CNN kernels over that run.
+7. Eval reference phase: a small FCOS mutual step with the fused stem
+   (TPU.STEM_MODE "pallas"), and evaluation of the small FCOS configuration
+   through TestDataLoader and inference_on_dataset, each on the card and on
+   the CPU from the same weights and images; detections and AP must agree.
+8. FCOS eval slice: fcos_R_50_ut2_sup1_run0.yaml with the fused stem, test
+   canvas 800x1344, batch 8, random weights, 64 landscape + 16 portrait
+   synthetic COCO-style images through TestDataLoader + inference_on_dataset
+   (as a trainer's test() drives them): AP fields, seconds per image, peak
+   memory, exact launch counts; and the ground truth fed back as detections
+   must score AP 100.
+9. Faster R-CNN eval slice: faster_rcnn_R_50_FPN_ut2_sup1_run0.yaml with the
+   fused stem and TEST.EVAL_PROPOSALS on the same images, through
+   make_rcnn_inference_fn and make_rcnn_proposal_fn: AP and proposal AR
+   fields, exact launch counts.
+
+The kernels' launch counts in the JSON line are the sums over the slice
+phases (4, 6, 8, 9).
 
 Prints the kernels' JSON line second to last and
 {"ok": true, "device": {...}} last; exits nonzero, with no result line, on
@@ -93,6 +114,22 @@ RCNN_SMALL_OPTS = [
 ]
 RCNN_SMALL_CANVAS = (64, 64)
 
+# evaluation: the test canvas and batch of both recipes (TPU.TEST_CANVAS,
+# TPU.EVAL_BATCH); 64 landscape + 16 portrait images of COCO-like sizes give
+# 10 batches, so the warm-up rule (5 batches, and the first of each canvas)
+# leaves 4 timed batches
+EVAL_CANVAS = (800, 1344)
+EVAL_BATCH = 8
+EVAL_IMAGES = ((64, (480, 640)), (16, (640, 427)))
+EVAL_BATCHES = sum(-(-n // EVAL_BATCH) for n, _ in EVAL_IMAGES)
+# the CPU parity tests' small FCOS configuration (tests/torch_parity.py)
+FCOS_SMALL_OPTS = [
+    "MODEL.RESNETS.DEPTH", "18", "MODEL.FCOS.NUM_CLASSES", "4",
+    "TPU.COMPUTE_DTYPE", "float32", "TPU.MAX_GT", "4", "TPU.MAX_PSEUDO", "10",
+    "TPU.NMS_CANDIDATES", "50", "SEMISUPNET.BURN_UP_STEP", "0",
+]
+EVAL_SUMMARY = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100")
+
 
 def log(*args) -> None:
     print(*args, flush=True)
@@ -104,6 +141,24 @@ def gpu_name_and_power() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM
+# bytes per second, float32 on the CUDA cores and bf16 on the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_F32 = 67e12
+PEAK_BF16_TENSOR = 989e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, ops: float, peak: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move over the HBM rate and its operations over `peak`."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / peak
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def median_ms(fn, runs: int = TIMED_RUNS) -> float:
@@ -125,12 +180,17 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
 
 
 def build_kernels() -> None:
+    from ubteacher_tpu_torch.evaluation import native
     from ubteacher_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"built {len(built)} CUDA libraries in {time.perf_counter() - t0:.2f} s "
         "(Triton kernels compile at first launch)")
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise RuntimeError("g++ could not build csrc/coco_eval_native.cpp")
+    log(f"built the native COCO matcher in {time.perf_counter() - t0:.2f} s")
     for name, (_, report, seconds) in built.items():
         log(f"  csrc/{name}.cu: {seconds:.2f} s")
         for line in report.strip().splitlines():
@@ -221,6 +281,11 @@ def fcos_kernel_rows(device, gen):
         "max_abs_err": float(unsettled),
         "ms": median_ms(lambda: nms_cuda.nms_sorted_keep_kernel(sboxes, nvalid, NMS_T)),
         "plain_ms": median_ms(lambda: nms_cuda.nms_sorted_keep_plain(sboxes, nvalid, NMS_T)),
+        # the overlap test of every pair of valid candidates, ~12 float32
+        # operations each
+        **bound(nbytes(sboxes, nvalid, got), 12 * float((nvalid.double() * (nvalid.double() - 1) / 2).sum()),
+                PEAK_F32),
+        "library_ms": None,
     })
 
     # --- focal forward and backward ---
@@ -244,6 +309,8 @@ def fcos_kernel_rows(device, gen):
         "max_abs_err": float((fwd - fwd_ref).abs().max()),
         "ms": median_ms(lambda: focal_triton.focal_forward_kernel(x, t, 0.25, 2.0)),
         "plain_ms": median_ms(lambda: losses.sigmoid_focal_loss(x, t, 0.25, 2.0)),
+        **bound(nbytes(x, t, fwd), 15 * x.numel(), PEAK_F32),  # ~15 float32 operations per element
+        "library_ms": None,
     })
     results.append({
         "name": "focal_bwd", "route": "triton",
@@ -252,6 +319,8 @@ def fcos_kernel_rows(device, gen):
         "max_abs_err": float((bwd - bwd_ref).abs().max()),
         "ms": median_ms(lambda: focal_triton.focal_backward_kernel(x, t, g, 0.25, 2.0)),
         "plain_ms": median_ms(lambda: losses.sigmoid_focal_loss_grad(x, t, g, 0.25, 2.0)),
+        **bound(nbytes(x, t, g, bwd), 25 * x.numel(), PEAK_F32),
+        "library_ms": None,
     })
 
     # --- GIoU ---
@@ -270,6 +339,8 @@ def fcos_kernel_rows(device, gen):
         "max_abs_err": float((rows - rows_ref).abs().max()),
         "ms": median_ms(lambda: giou_triton.giou_rows_kernel(p, q, w)),
         "plain_ms": median_ms(lambda: giou_triton.giou_rows_plain(p, q, w)),
+        **bound(nbytes(p, q, w, rows), 30 * p.shape[0], PEAK_F32),
+        "library_ms": None,
     })
     return results
 
@@ -327,6 +398,34 @@ def rcnn_rois(gen, device, b, r):
     return torch.minimum(torch.maximum(boxes, torch.zeros((), device=device)), lim).contiguous()
 
 
+def roi_bound(boxes, level, scales, shapes, rois_per_image, channels, pooled):
+    """(feature pixels some roi reads, bilinear taps): the pixels are each
+    roi's sample span on its level (shifted half a pixel, clipped, widened to
+    the corner pixels), united over the rois of an image with a 2-d
+    difference array; a tap is one corner of one sample of one bin of one
+    channel, with ceil(extent / P) samples per axis, at most 8 (sampling
+    ratio 0, ops/roi_align.py)."""
+    import torch
+
+    dev = boxes.device
+    sc = torch.tensor(scales, device=dev)[level.long()]
+    per_axis = (((boxes[:, 2:] - boxes[:, :2]) * sc[:, None]).clamp_min(1e-6) / pooled).ceil().clamp(1, 8)
+    taps = 4 * channels * pooled * pooled * float(per_axis.prod(1).sum())
+    img = torch.arange(boxes.shape[0], device=dev) // rois_per_image
+    n_img = boxes.shape[0] // rois_per_image
+    pixels = 0
+    for lv, (s, (h, w)) in enumerate(zip(scales, shapes)):
+        sel = level == lv
+        bx, b = boxes[sel] * s - 0.5, img[sel]
+        x0, x1 = (bx[:, 0::2].clamp(0, w - 1).floor().long() + torch.tensor([0, 1], device=dev)).clamp(max=w - 1).T
+        y0, y1 = (bx[:, 1::2].clamp(0, h - 1).floor().long() + torch.tensor([0, 1], device=dev)).clamp(max=h - 1).T
+        diff = torch.zeros((n_img, h + 1, w + 1), dtype=torch.int32, device=dev)
+        for yy, xx, v in ((y0, x0, 1), (y0, x1 + 1, -1), (y1 + 1, x0, -1), (y1 + 1, x1 + 1, 1)):
+            diff.index_put_((b, yy, xx), torch.full_like(b, v, dtype=torch.int32), accumulate=True)
+        pixels += int((diff.cumsum(1).cumsum(2)[:, :h, :w] > 0).sum())
+    return pixels, taps
+
+
 def rcnn_kernel_rows(device, gen):
     import torch
 
@@ -353,6 +452,9 @@ def rcnn_kernel_rows(device, gen):
         "max_abs_err": float(max((idx - idx_ref).abs().max(), (lab - lab_ref).abs().max())),
         "ms": median_ms(lambda: matcher_cuda.match_anchors_kernel(anchors, gt, mask)),
         "plain_ms": median_ms(lambda: matcher_cuda.match_anchors_plain(anchors, gt, mask)),
+        # one IoU (~12 float32 operations) per anchor and valid gt
+        **bound(nbytes(anchors, gt, mask, idx, lab), 12 * anchors.shape[0] * int(mask.sum()), PEAK_F32),
+        "library_ms": None,
     })
     del idx_ref, lab_ref
     torch.cuda.empty_cache()
@@ -385,6 +487,9 @@ def rcnn_kernel_rows(device, gen):
     if not torch.allclose(out16.float(), ref16.float(), rtol=2**-7, atol=1e-5):
         raise AssertionError(f"roi_align_fwd bfloat16: max abs err {err16}")
     del out32, ref32, out16, ref16
+    pixels, taps = roi_bound(boxes, level, scales, [f.shape[2:] for f in feats], r, c, p)
+    log(f"roi_align: {pixels} feature pixels read, {taps:.4g} bilinear taps")
+    pooled16 = b * r * p * p * c * 2
     results.append({
         "name": "roi_align_fwd", "route": "cuda", "source": "ubteacher_tpu_torch/csrc/roi_align.cu",
         "replaces": "ubteacher_tpu/ops/pallas/roi_align_pallas.py:894",
@@ -392,6 +497,10 @@ def rcnn_kernel_rows(device, gen):
         "ms": median_ms(lambda: roi_align_cuda.roi_align_forward_kernel(feats16, *args)),
         "plain_ms": median_ms(lambda: roi_align_cuda.roi_align_plain(feats16, *args)),
         "ms_f32": median_ms(lambda: roi_align_cuda.roi_align_forward_kernel(feats, *args)),
+        # the feature pixels the rois read and the pooled output, bf16; a
+        # multiply-add per tap on the CUDA cores
+        **bound(pixels * c * 2 + nbytes(boxes, level) + pooled16, 2 * taps, PEAK_F32),
+        "library_ms": None,
     })
 
     grad = torch.randn((b * r, p, p, c), generator=gen, device=device)
@@ -428,6 +537,9 @@ def rcnn_kernel_rows(device, gen):
         "ms": median_ms(lambda: roi_align_cuda.roi_align_backward_kernel(grad16, feats16, *args)),
         "plain_ms": median_ms(lambda: torch.autograd.grad(plain_out, leaves, grad, retain_graph=True)),
         "ms_f32": median_ms(lambda: roi_align_cuda.roi_align_backward_kernel(grad, feats, *args)),
+        # the pooled gradient in, every level's feature gradient out (bf16)
+        **bound(pooled16 + nbytes(boxes, level, *feats16), 2 * taps, PEAK_F32),
+        "library_ms": None,
     })
     del feats, feats16, grad, grad16, leaves, plain_out, ref_g
     torch.cuda.empty_cache()
@@ -448,25 +560,118 @@ def rcnn_kernel_rows(device, gen):
         err = max(err, float((got - ref).abs().max()))
     log(f"row_scatter: ({RCNN_STUDENT}, {RCNN_RPN_ROWS}, D) into {length} rows, max abs err {err:.3g}")
     g = torch.randn((RCNN_STUDENT, RCNN_RPN_ROWS, 12), generator=gen, device=device)
+    # the library yardstick: one index_add_ into a zeroed (B * L, D) grid
+    flat_rows = (rows + torch.arange(RCNN_STUDENT, device=device)[:, None] * length).reshape(-1)
+
+    def index_add():
+        return torch.zeros((RCNN_STUDENT * length, 12), device=device).index_add_(0, flat_rows, g.reshape(-1, 12))
+
+    if not torch.allclose(index_add().view(RCNN_STUDENT, length, 12),
+                          row_scatter_cuda.scatter_rows_plain(g, rows, length), rtol=1e-6, atol=1e-5):
+        raise AssertionError("row_scatter: the index_add_ yardstick computes another function")
     results.append({
         "name": "row_scatter", "route": "cuda", "source": "ubteacher_tpu_torch/csrc/row_scatter.cu",
         "replaces": "ubteacher_tpu/ops/pallas/row_gather_pallas.py:71",
         "max_abs_err": err,
         "ms": median_ms(lambda: row_scatter_cuda.scatter_rows_kernel(g, rows, length)),
         "plain_ms": median_ms(lambda: row_scatter_cuda.scatter_rows_plain(g, rows, length)),
+        **bound(nbytes(g, rows) + RCNN_STUDENT * length * 12 * 4, g.numel(), PEAK_F32),
+        "library_ms": median_ms(index_add),
     })
     return results
+
+
+def bf16_ulp(v):
+    """Spacing of bfloat16 values at |v| (8 significant bits)."""
+    import torch
+
+    return torch.pow(2.0, torch.floor(torch.log2(v.abs().clamp_min(2.0**-126))) - 7)
+
+
+def stem_kernel_rows(device, gen):
+    """The fused stem at the eval canvases of 8 images, landscape and
+    portrait, in float32 and bfloat16, against its plain version; and the
+    port's conv-mode stem (cuDNN conv, FrozenBN, ReLU, max-pool under bf16
+    autocast) on the same weights, timed as the yardstick and held against
+    the float32 result like the kernel's bf16 output."""
+    import torch
+
+    from ubteacher_tpu_torch.modeling.resnet import ResNet
+    from ubteacher_tpu_torch.ops.kernels import stem_cuda
+    from ubteacher_tpu_torch.ops.stem import stem_conv_pool_plain
+
+    torch.backends.cudnn.allow_tf32 = False  # the plain float32 conv in full float32
+    kernel = torch.randn((7, 7, 3, 64), generator=gen, device=device) * 0.1
+    scale = torch.rand((64,), generator=gen, device=device) * 1.5 + 0.5
+    bias = torch.randn((64,), generator=gen, device=device)
+    conv = ResNet(depth=18, out_features=("res2",), stem_mode="conv").to(device)
+    with torch.no_grad():
+        conv.stem_conv1.weight.copy_(kernel.permute(3, 2, 0, 1))
+        conv.stem_conv1_norm.scale.copy_(scale)
+        conv.stem_conv1_norm.bias.copy_(bias)
+
+    def conv_stem(x):
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return conv.stem(x.permute(0, 3, 1, 2))
+
+    err = 0.0
+    for orient, (h, w) in (("landscape", EVAL_CANVAS), ("portrait", EVAL_CANVAS[::-1])):
+        x = torch.randn((EVAL_BATCH, h, w, 3), generator=gen, device=device) * 50
+        ref32 = stem_conv_pool_plain(x, kernel, scale, bias, torch.float32)
+        got32 = stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, torch.float32)
+        ref16 = stem_conv_pool_plain(x, kernel, scale, bias, torch.bfloat16).float()
+        got16 = stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, torch.bfloat16).float()
+        conv16 = conv_stem(x).permute(0, 2, 3, 1).float()
+        torch.cuda.synchronize()
+        err32 = float((got32 - ref32).abs().max())
+        err16 = (got16 - ref16).abs()
+        # float32: JAX's own tolerance (test_stem_pallas.py), the 147
+        # products summed in another order. bf16: the float32 sum is rounded
+        # once to bf16 and the bias added in bf16, so an output may sit one
+        # ulp of the sum (|out| + |bias| bounds it) plus one ulp of the
+        # bias add from the plain version's
+        tol16 = 2 * bf16_ulp(ref16.abs() + bias.bfloat16().float().abs())
+        log(f"stem {orient} {tuple(x.shape)}: max abs err float32 {err32:.3g}, bfloat16 {float(err16.max()):.3g} "
+            f"({int((err16 > 0).sum())} of {err16.numel()} outputs differ); against the float32 result: kernel "
+            f"bf16 {float((got16 - ref32).abs().max()):.4g}, conv-mode bf16 {float((conv16 - ref32).abs().max()):.4g} "
+            f"(|out| max {float(ref32.abs().max()):.4g})")
+        if got32.shape != (EVAL_BATCH, -(-h // 4), -(-w // 4), 64) or not torch.allclose(got32, ref32, rtol=1e-5,
+                                                                                          atol=1e-4):
+            raise AssertionError(f"stem float32 {orient}: shape {tuple(got32.shape)}, max abs err {err32}")
+        if not bool((err16 <= tol16).all()):
+            raise AssertionError(f"stem bfloat16 {orient}: {int((err16 > tol16).sum())} outputs beyond two bf16 ulps")
+        err = max(err, float(err16.max()))
+        if orient == "landscape":
+            out_bytes = got16.numel() * 2
+            ho, wo = -(-h // 2), -(-w // 2)
+            row = {
+                "name": "stem", "route": "cuda", "source": "ubteacher_tpu_torch/csrc/stem.cu",
+                "replaces": "ubteacher_tpu/ops/pallas/stem_pallas.py:255",
+                "ms": median_ms(lambda: stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, torch.bfloat16)),
+                "plain_ms": median_ms(lambda: stem_conv_pool_plain(x, kernel, scale, bias, torch.bfloat16)),
+                "ms_f32": median_ms(lambda: stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, torch.float32)),
+                # the image in and the pooled bf16 output; the conv's bf16
+                # multiply-adds on the tensor cores
+                **bound(nbytes(x) + out_bytes, 2.0 * EVAL_BATCH * ho * wo * 64 * 147, PEAK_BF16_TENSOR),
+                # four calls (conv, FrozenBN, ReLU, max-pool): no one call computes the stem
+                "library_ms": median_ms(lambda: conv_stem(x)),
+            }
+        del x, ref32, got32, ref16, got16, conv16
+    row["max_abs_err"] = err
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def kernel_phase(device):
     import torch
 
     gen = torch.Generator(device=device).manual_seed(0)
-    results = fcos_kernel_rows(device, gen) + rcnn_kernel_rows(device, gen)
+    results = fcos_kernel_rows(device, gen) + rcnn_kernel_rows(device, gen) + stem_kernel_rows(device, gen)
     for r in results:
         extra = f" (float32 {r['ms_f32']:.4f} ms)" if "ms_f32" in r else ""
-        log(f"kernel {r['name']}: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms{extra}, "
-            f"max abs err {r['max_abs_err']:.3g}")
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        log(f"kernel {r['name']}: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms{extra}{lib}, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err {r['max_abs_err']:.3g}")
     torch.cuda.empty_cache()
     return results
 
@@ -524,31 +729,45 @@ def to_device(value, device):
     return value.to(device)
 
 
-def build_state(cfg, device, seed, cls_bias):
+def build_fcos_model(cfg, device, seed, cls_bias):
+    """OneStageDetector from `seed` (drawn on the CPU, so every device gets
+    the same weights) with every cls_logits bias set to `cls_bias`."""
     import torch
 
-    from ubteacher_tpu_torch.engine import FCOSTrainState
     from ubteacher_tpu_torch.modeling.fcos_head import build_one_stage_detector
-    from ubteacher_tpu_torch.solver import build_optimizer
 
     model = build_one_stage_detector(cfg, device, torch.Generator().manual_seed(seed))
     with torch.no_grad():
         model.head.cls_logits.bias.fill_(cls_bias)
+    return model
+
+
+def build_state(cfg, device, seed, cls_bias):
+    from ubteacher_tpu_torch.engine import FCOSTrainState
+    from ubteacher_tpu_torch.solver import build_optimizer
+
+    model = build_fcos_model(cfg, device, seed, cls_bias)
     return FCOSTrainState.create(model, build_optimizer(cfg, model))
 
 
-def build_rcnn_state(cfg, device, seed, cls_bias):
-    """TwoStageRCNN from `seed` (drawn on the CPU, so every device gets the
-    same weights) with class 0's cls_score bias set to `cls_bias`."""
+def build_rcnn_model(cfg, device, seed, cls_bias):
+    """TwoStageRCNN from `seed` (drawn on the CPU) with class 0's cls_score
+    bias set to `cls_bias`."""
     import torch
 
-    from ubteacher_tpu_torch.engine.rcnn_trainer import RCNNTrainState
     from ubteacher_tpu_torch.modeling.rcnn import build_two_stage_rcnn
-    from ubteacher_tpu_torch.solver import build_optimizer
 
     model = build_two_stage_rcnn(cfg, device, torch.Generator().manual_seed(seed))
     with torch.no_grad():
         model.box_predictor.cls_score.bias[0] = cls_bias
+    return model
+
+
+def build_rcnn_state(cfg, device, seed, cls_bias):
+    from ubteacher_tpu_torch.engine.rcnn_trainer import RCNNTrainState
+    from ubteacher_tpu_torch.solver import build_optimizer
+
+    model = build_rcnn_model(cfg, device, seed, cls_bias)
     return RCNNTrainState.create(model, build_optimizer(cfg, model))
 
 
@@ -608,18 +827,14 @@ def agree(name, got, ref, counts) -> None:
 # --------------------------------------------------------------------------
 
 
-def reference_phase(device) -> None:
+def reference_phase(device, extra_opts=()) -> None:
     import torch
 
     from ubteacher_tpu_torch.data.augment import draw_strong_params
     from ubteacher_tpu_torch.engine import make_fcos_train_steps
 
     # the CPU parity tests' configuration; the card runs it in float32
-    cfg = load_cfg([
-        "MODEL.RESNETS.DEPTH", "18", "MODEL.FCOS.NUM_CLASSES", "4",
-        "TPU.COMPUTE_DTYPE", "float32", "TPU.MAX_GT", "4", "TPU.MAX_PSEUDO", "10",
-        "TPU.NMS_CANDIDATES", "50", "SEMISUPNET.BURN_UP_STEP", "0",
-    ])
+    cfg = load_cfg(FCOS_SMALL_OPTS + list(extra_opts))
     canvas = (64, 96)
     cpu = torch.device("cpu")
     batch = synthetic_batch(cfg, 2, 2, canvas, torch.Generator().manual_seed(100), cpu)
@@ -633,7 +848,7 @@ def reference_phase(device) -> None:
         _, m = mutual(state, {k: to_device(v, dev) for k, v in batch.items()})
         metrics[dev.type] = {k: float(v) for k, v in m.items()}
     ref, got = metrics["cpu"], metrics["cuda"]
-    log("reference phase (cpu plain vs cuda kernels):",
+    log(f"reference phase {list(extra_opts)} (cpu plain vs cuda kernels):",
         {k: (round(ref[k], 6), round(got[k], 6)) for k in ref})
     agree("reference phase", got, ref, ("num_pseudo_cls", "num_pseudo_reg", "num_nms_candidates"))
     if ref["num_pseudo_cls"] <= 0:
@@ -815,10 +1030,199 @@ def rcnn_slice_phase(device):
     check_ema("rcnn", cfg, mutual_metrics)
     if not any(m["num_pseudo"] > 0 for m in mutual_metrics):
         raise AssertionError("rcnn: no mutual step had pseudo boxes")
-    expected = dict.fromkeys(counts, 0)
-    expected.update(RCNN_EXPECTED)
-    if counts != expected:
-        raise AssertionError(f"rcnn launches {counts}, expected {expected}")
+    expect_counts("rcnn", counts, RCNN_EXPECTED)
+    return counts
+
+
+# --------------------------------------------------------------------------
+# evaluation: the reference phase and the FCOS and Faster R-CNN eval slices
+# --------------------------------------------------------------------------
+
+
+def eval_dataset(images, num_classes, seed, max_boxes=12):
+    """COCO-style dataset dicts for `images` ((count, (h, w)), ...): up to
+    `max_boxes` gt boxes (xyxy, sides log-uniform from 8 px to 0.9 of the
+    short edge, so all three COCO area ranges occur), the first box of every
+    tenth image a crowd; and an in-memory image reader of seeded uint8 BGR
+    noise, as TestDataLoader's image_loader."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dicts = []
+    for h, w in (hw for n, hw in images for _ in range(n)):
+        i = len(dicts)
+        n = int(rng.integers(1, max_boxes + 1))
+        bw, bh = np.exp(rng.uniform(np.log(8), np.log(0.9 * min(h, w)), (2, n)))
+        x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+        anns = [{"bbox": [float(x0[j]), float(y0[j]), float(x0[j] + bw[j]), float(y0[j] + bh[j])],
+                 "category_id": int(rng.integers(0, num_classes)), "iscrowd": int(i % 10 == 0 and j == 0),
+                 "area": float(bw[j] * bh[j])} for j in range(n)]
+        dicts.append({"file_name": f"synthetic/{i}.png", "image_id": i + 1, "height": h, "width": w,
+                      "annotations": anns})
+
+    def image_loader(file_name):
+        d = dicts[int(file_name.split("/")[1].split(".")[0])]
+        return np.random.default_rng((seed, d["image_id"])).integers(0, 256, (d["height"], d["width"], 3), np.uint8)
+
+    return dicts, image_loader
+
+
+def gt_rows(dicts):
+    """The non-crowd ground truth as collect_detections rows, score 1."""
+    import numpy as np
+
+    return np.asarray([[d["image_id"], o["bbox"][0], o["bbox"][1], o["bbox"][2] - o["bbox"][0],
+                        o["bbox"][3] - o["bbox"][1], 1.0, o["category_id"]]
+                       for d in dicts for o in d["annotations"] if not o["iscrowd"]], np.float64)
+
+
+def eval_reference_phase(device) -> None:
+    """The fused stem inside a small FCOS mutual step (its autograd.Function
+    under the train step), then evaluation of the small FCOS configuration
+    through TestDataLoader, on the card through the kernels and on the CPU
+    through the plain versions, from the same weights and images."""
+    import numpy as np
+    import torch
+
+    from ubteacher_tpu_torch.data.loader import TestDataLoader
+    from ubteacher_tpu_torch.evaluation.evaluator import (
+        collect_detections,
+        inference_on_dataset,
+        make_fcos_inference_fn,
+    )
+
+    reference_phase(device, ["TPU.STEM_MODE", "pallas"])
+
+    cfg = load_cfg(FCOS_SMALL_OPTS + ["TPU.STEM_MODE", "pallas", "TPU.TEST_CANVAS", "(64, 96)",
+                                      "INPUT.MIN_SIZE_TEST", "56", "INPUT.MAX_SIZE_TEST", "90", "TPU.EVAL_BATCH", "2"])
+    dicts, image_loader = eval_dataset(((3, (48, 72)), (2, (80, 50))), cfg.MODEL.FCOS.NUM_CLASSES, seed=5)
+    by_id = {d["image_id"]: d for d in dicts}
+    runs = []
+    for dev in (torch.device("cpu"), device):
+        model = build_fcos_model(cfg, dev, seed=0, cls_bias=0.5)
+
+        def loader():
+            return TestDataLoader(cfg, dicts, batch_size=cfg.TPU.EVAL_BATCH, image_loader=image_loader)
+
+        rows = collect_detections(model, loader(), by_id, make_fcos_inference_fn(cfg))[0]
+        runs.append((rows, inference_on_dataset(cfg, model, loader(), dicts)))
+    (ref_rows, ref), (got_rows, got) = runs
+    log(f"eval reference phase: {len(ref_rows)} detections on the cpu, {len(got_rows)} on the card; AP cpu "
+        f"{ref['AP']:.6f} card {got['AP']:.6f}")
+    # the kept set and classes equal; boxes within 5e-3 px and scores within
+    # 1e-4 (the rcnn reference phase's bounds); AP fields within 1e-6
+    if len(ref_rows) == 0 or ref_rows.shape != got_rows.shape or not np.array_equal(
+            ref_rows[:, [0, 6]], got_rows[:, [0, 6]]):
+        raise AssertionError("eval reference phase: the detections differ in their kept set or classes")
+    for cols, tol, what in (([1, 2, 3, 4], 5e-3, "boxes"), ([5], 1e-4, "scores")):
+        err = float(np.abs(got_rows[:, cols] - ref_rows[:, cols]).max())
+        if err > tol:
+            raise AssertionError(f"eval reference phase: {what} max abs err {err}")
+    for k, v in ref.items():
+        if k != "inference_sec_per_image" and not (abs(got[k] - v) <= 1e-6 or (math.isnan(v) and math.isnan(got[k]))):
+            raise AssertionError(f"eval reference phase: {k} cuda {got[k]} vs cpu {v}")
+
+
+def run_eval(name, cfg, model, dicts, image_loader, num_classes, infer_fn, proposal_fn, device):
+    """The evaluation entry points as a trainer's test() drives them, with
+    the launch counts reset just before and read just after."""
+    import torch
+
+    from ubteacher_tpu_torch.data.loader import TestDataLoader
+    from ubteacher_tpu_torch.evaluation.evaluator import inference_on_dataset
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    loader = TestDataLoader(cfg, dicts, batch_size=cfg.TPU.EVAL_BATCH, image_loader=image_loader)
+    if len(loader) != EVAL_BATCHES:
+        raise AssertionError(f"{name}: {len(loader)} batches, expected {EVAL_BATCHES}")
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = inference_on_dataset(cfg, model, loader, dicts, nms_method=cfg.MODEL.FCOS.NMS_CRITERIA_TEST,
+                                    num_classes=num_classes, infer_fn=infer_fn, proposal_fn=proposal_fn)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"{name}: {len(dicts)} images in {seconds:.2f} s, inference_sec_per_image "
+        f"{results.get('inference_sec_per_image', float('nan')):.6f}; launches {counts}; max_memory_allocated "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB)")
+    log(f"{name} metrics: " + ", ".join(f"{k}={v:.6g}" for k, v in results.items()))
+    bad = [k for k in EVAL_SUMMARY if not math.isfinite(results[k])]
+    if bad or not results.get("inference_sec_per_image", 0) > 0:
+        raise AssertionError(f"{name}: non-finite summary metrics {bad} or no timed batch")
+    return results, counts
+
+
+def expect_counts(name, counts, expected) -> None:
+    full = dict.fromkeys(counts, 0)
+    full.update(expected)
+    if counts != full:
+        raise AssertionError(f"{name} launches {counts}, expected {full}")
+
+
+def fcos_eval_slice_phase(device):
+    """fcos_R_50_ut2_sup1_run0.yaml with the fused stem, full width, random
+    weights: TestDataLoader + inference_on_dataset as the trainer's test()
+    drives them. Per batch: one stem and one NMS launch (fcos_decode)."""
+    import torch
+
+    from ubteacher_tpu_torch.evaluation.evaluator import evaluate_detection_rows, make_fcos_inference_fn
+
+    cfg = load_cfg(["TPU.STEM_MODE", "pallas"])
+    model = build_fcos_model(cfg, device, seed=0, cls_bias=SLICE_CLS_BIAS)
+    num_classes = cfg.MODEL.FCOS.NUM_CLASSES
+    dicts, image_loader = eval_dataset(EVAL_IMAGES, num_classes, seed=1)
+    log(f"fcos eval slice: R-{cfg.MODEL.RESNETS.DEPTH} FCOS, {num_classes} classes, stem "
+        f"{cfg.TPU.STEM_MODE}, test canvas {tuple(cfg.TPU.TEST_CANVAS)}, batch {cfg.TPU.EVAL_BATCH}, "
+        f"compute {cfg.TPU.COMPUTE_DTYPE}")
+    # the default inference function (NMS_CRITERIA_TEST), counting what it keeps
+    infer = make_fcos_inference_fn(cfg, cfg.MODEL.FCOS.NMS_CRITERIA_TEST)
+    kept = []
+
+    def counted(m, images, hw):
+        dets = infer(m, images, hw)
+        kept.append(dets.mask.sum())
+        return dets
+
+    _, counts = run_eval("fcos eval slice", cfg, model, dicts, image_loader, num_classes, counted, None, device)
+    n_kept = int(torch.stack(kept).sum())
+    log(f"fcos eval slice: {n_kept} detections kept")
+    if n_kept == 0:
+        raise AssertionError("fcos eval slice: no detections")
+    expect_counts("fcos eval slice", counts, {"stem": EVAL_BATCHES, "nms": EVAL_BATCHES})
+    oracle = evaluate_detection_rows(gt_rows(dicts), dicts, num_classes)
+    log("ground truth as detections: " + ", ".join(f"{k}={oracle[k]:.6g}" for k in EVAL_SUMMARY))
+    if any(abs(oracle[k] - 100.0) > 1e-9 for k in ("AP", "AP50", "AP75")):
+        raise AssertionError("the ground truth fed back as detections does not score AP 100")
+    return counts
+
+
+def rcnn_eval_slice_phase(device):
+    """faster_rcnn_R_50_FPN_ut2_sup1_run0.yaml with the fused stem and
+    TEST.EVAL_PROPOSALS, full width, random weights. Per batch: the
+    inference function runs the stem, the RPN's NMS, the box head's ROIAlign
+    and fast_rcnn_inference's NMS; the proposal function the stem and the
+    RPN's NMS again."""
+    from ubteacher_tpu_torch.engine.rcnn_trainer import make_rcnn_inference_fn, make_rcnn_proposal_fn
+
+    cfg = load_cfg(["TPU.STEM_MODE", "pallas", "TEST.EVAL_PROPOSALS", "True"], RCNN_CFG)
+    model = build_rcnn_model(cfg, device, seed=0, cls_bias=RCNN_SLICE_CLS_BIAS)
+    num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    dicts, image_loader = eval_dataset(EVAL_IMAGES, num_classes, seed=1)
+    log(f"rcnn eval slice: R-{cfg.MODEL.RESNETS.DEPTH}-FPN Faster R-CNN, {num_classes} classes, stem "
+        f"{cfg.TPU.STEM_MODE}, proposals evaluated {cfg.TEST.EVAL_PROPOSALS}")
+    results, counts = run_eval(
+        "rcnn eval slice", cfg, model, dicts, image_loader, num_classes, make_rcnn_inference_fn(cfg),
+        make_rcnn_proposal_fn(cfg) if cfg.TEST.EVAL_PROPOSALS else None, device,
+    )
+    expect_counts("rcnn eval slice", counts,
+                  {"stem": 2 * EVAL_BATCHES, "nms": 3 * EVAL_BATCHES, "roi_align_fwd": EVAL_BATCHES})
+    ar = [f"AR{s}@{n}" for n in (100, 1000) for s in ("", "s", "m", "l")]
+    bad = [k for k in ar if not math.isfinite(results.get(k, float("nan")))]
+    if bad:
+        raise AssertionError(f"rcnn eval slice: proposal recall fields missing or not finite: {bad}")
     return counts
 
 
@@ -839,7 +1243,9 @@ def main() -> int:
 
     counts = {}
     phases = (("kernel", kernel_phase), ("fcos reference", reference_phase), ("fcos slice", slice_phase),
-              ("rcnn reference", rcnn_reference_phase), ("rcnn slice", rcnn_slice_phase))
+              ("rcnn reference", rcnn_reference_phase), ("rcnn slice", rcnn_slice_phase),
+              ("eval reference", eval_reference_phase), ("fcos eval slice", fcos_eval_slice_phase),
+              ("rcnn eval slice", rcnn_eval_slice_phase))
     for name, phase in phases:
         t0 = time.perf_counter()
         out = phase(device)

@@ -24,7 +24,7 @@ C = 4
 
 
 def _grids():
-    return J.compute_locations(CANVAS, STRIDES), T.compute_locations(CANVAS, STRIDES)
+    return J.compute_locations(CANVAS, STRIDES), T.compute_locations(CANVAS, STRIDES, device="cpu")
 
 
 def _gt(seed, b=2, m=6):

@@ -4,11 +4,14 @@ CPU; the tolerance is the one tests/test_torch_equivalence.py uses for the
 same graph (float32 convolutions summed in another order by XLA and by
 PyTorch's CPU kernels)."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
-from torch_parity import CANVAS, jax_model_and_params, port_model, small_cfgs
+from torch_parity import CANVAS, jax_model_and_params, port_model, small_cfgs, small_rcnn_cfgs
 
 
 def test_fcos_model_matches_jax():
@@ -38,3 +41,23 @@ def test_fcos_model_matches_jax():
             getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
             rtol=1e-3, atol=5e-3, err_msg=name,
         )
+
+
+@pytest.mark.parametrize("kind", ["fcos", "rcnn"])
+def test_build_functions_default_to_the_card(kind, monkeypatch):
+    """With no device the build functions build on the card, and raise where
+    there is none rather than building on the CPU; the geometry helpers
+    default to the card too."""
+    from ubteacher_tpu_torch.modeling.anchors import generate_anchors
+    from ubteacher_tpu_torch.modeling.fcos_head import build_one_stage_detector
+    from ubteacher_tpu_torch.modeling.fcos_outputs import compute_locations
+    from ubteacher_tpu_torch.modeling.rcnn import build_two_stage_rcnn
+
+    build, cfg = {"fcos": (build_one_stage_detector, small_cfgs()[1]),
+                  "rcnn": (build_two_stage_rcnn, small_rcnn_cfgs()[1])}[kind]
+    for fn in (build, generate_anchors, compute_locations):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(cfg)
+    assert next(build(cfg, device="cpu").parameters()).device.type == "cpu"

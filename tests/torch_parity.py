@@ -85,7 +85,7 @@ def port_model(cfg, params):
     from ubteacher_tpu_torch.checkpoint import params_from_jax
     from ubteacher_tpu_torch.modeling.fcos_head import build_one_stage_detector
 
-    model = build_one_stage_detector(cfg)
+    model = build_one_stage_detector(cfg, device="cpu")
     missing, unexpected = model.load_state_dict(params_from_jax(params), strict=True)
     assert not missing and not unexpected
     return model
@@ -252,7 +252,7 @@ def port_rcnn_model(cfg, params):
     from ubteacher_tpu_torch.checkpoint import params_from_jax
     from ubteacher_tpu_torch.modeling.rcnn import build_two_stage_rcnn
 
-    model = build_two_stage_rcnn(cfg)
+    model = build_two_stage_rcnn(cfg, device="cpu")
     missing, unexpected = model.load_state_dict(params_from_jax(params), strict=True)
     assert not missing and not unexpected
     return model

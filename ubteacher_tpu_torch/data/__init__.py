@@ -1,1 +1,2 @@
-"""Strong augmentation (PyTorch port of ubteacher_tpu.data, device part only)."""
+"""Strong augmentation, the COCO json readers and the test loader (PyTorch
+port of ubteacher_tpu.data; the two-stream train loader is not ported yet)."""

@@ -100,15 +100,18 @@ class _RCNNParts:
         a = self.cfg.MODEL.ANCHOR_GENERATOR
         return generate_anchors(canvas_hw, self.strides, a.SIZES, a.ASPECT_RATIOS, a.OFFSET, device)
 
-    def proposals(self, model, images, hw, train: bool):
-        """features -> RPN -> proposals (carrying no gradient, reference
-        fast_rcnn.py:856-858)."""
-        r = self.rpn_cfg
+    def rpn(self, model, images, hw):
+        """features -> RPN outputs and the canvas's anchors."""
         with self.autocast(images.device):
             pyramid = model.features(images, hw)
             logits, deltas = model.rpn(pyramid)
-        anch = self.anchors(images.shape[1:3], images.device)
-        boxes, _, mask = find_top_proposals(
+        return pyramid, logits, deltas, self.anchors(images.shape[1:3], images.device)
+
+    def top_proposals(self, anch, logits, deltas, hw, train: bool):
+        """(boxes, objectness, mask) of the RPN's proposals at train or test
+        settings (carrying no gradient, reference fast_rcnn.py:856-858)."""
+        r = self.rpn_cfg
+        return find_top_proposals(
             anch["anchors"], anch["level_lengths"], logits.detach(), deltas.detach(), hw,
             self.rpn_box2box,
             r.PRE_NMS_TOPK_TRAIN if train else r.PRE_NMS_TOPK_TEST,
@@ -118,6 +121,11 @@ class _RCNNParts:
             cell_origins=anch["cell_origins"],
             min_size=self.cfg.MODEL.PROPOSAL_GENERATOR.MIN_SIZE,
         )
+
+    def proposals(self, model, images, hw, train: bool):
+        """features -> RPN -> proposals."""
+        pyramid, logits, deltas, anch = self.rpn(model, images, hw)
+        boxes, _, mask = self.top_proposals(anch, logits, deltas, hw, train)
         return pyramid, logits, deltas, anch, boxes, mask
 
     def roi_box(self, model, pyramid, boxes):
@@ -348,6 +356,25 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
         return state, metrics
 
     return burnin_step, mutual_step
+
+
+def make_rcnn_proposal_fn(cfg) -> Callable:
+    """(model, images (B, H, W, 3), hw (B, 2)) -> (boxes (B, P, 4), objectness
+    (B, P), mask (B, P)): RPN proposals at test settings, for the
+    box-proposal AR path (reference: coco_evaluation.py:142-143 captures
+    output['proposals'])."""
+    parts = _RCNNParts(cfg)
+
+    @torch.inference_mode()
+    def proposals(model, images: torch.Tensor, hw: Optional[torch.Tensor] = None):
+        images = images.float()
+        if hw is None:
+            hw = hw_or_canvas({}, "hw", images)
+        hw = hw.float()
+        _, logits, deltas, anch = parts.rpn(model, images, hw)
+        return parts.top_proposals(anch, logits, deltas, hw, train=False)
+
+    return proposals
 
 
 def make_rcnn_inference_fn(cfg) -> Callable[[Any, torch.Tensor, torch.Tensor], Detections]:

@@ -73,7 +73,7 @@ def generate_anchors(
     sizes: Sequence[Sequence[float]],
     aspect_ratios: Sequence[Sequence[float]],
     offset: float = 0.0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Dict[str, object]:
     """All-level anchors of a canvas: {"anchors": (A, 4) f32,
     "level_lengths": [anchors per level], "level_ids": (A,) int32,

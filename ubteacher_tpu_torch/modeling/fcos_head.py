@@ -139,11 +139,15 @@ class OneStageDetector(nn.Module):
         return self.head([pyramid[f] for f in self.in_features])
 
 
-def build_one_stage_detector(cfg, device: torch.device | str = "cpu",
+def build_one_stage_detector(cfg, device: torch.device | str = "cuda",
                              generator: torch.Generator | None = None) -> OneStageDetector:
-    """Build the detector on `device`; weights are drawn on the CPU from
-    `generator` (flax's initializers: lecun-normal convs in the backbone and
-    FPN, N(0, 0.01) head convs, the focal prior bias), then moved."""
+    """Build the detector on `device` (the card unless the caller asks for the
+    CPU); weights are drawn on the CPU from `generator` (flax's initializers:
+    lecun-normal convs in the backbone and FPN, N(0, 0.01) head convs, the
+    focal prior bias), then moved."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_one_stage_detector: no CUDA device; pass device='cpu' to build on the CPU")
     f = cfg.MODEL.FCOS
     backbone = resnet_from_cfg(cfg)
     res2 = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS

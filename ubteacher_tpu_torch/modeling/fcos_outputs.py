@@ -40,7 +40,7 @@ def level_feature_sizes(
 
 
 def compute_locations(
-    canvas_hw: Tuple[int, int], strides: Sequence[int], device: torch.device | str = "cpu"
+    canvas_hw: Tuple[int, int], strides: Sequence[int], device: torch.device | str = "cuda"
 ) -> Dict[str, torch.Tensor]:
     """All-level location grid for a fixed canvas: locations (L, 2) (x, y) at
     stride/2 offsets, strides (L,), size_ranges (L, 2), level_ids (L,)."""

@@ -74,10 +74,14 @@ class TwoStageRCNN(nn.Module):
         return self.box_predictor(self.box_head(pooled))
 
 
-def build_two_stage_rcnn(cfg, device: torch.device | str = "cpu",
+def build_two_stage_rcnn(cfg, device: torch.device | str = "cuda",
                          generator: torch.Generator | None = None) -> TwoStageRCNN:
-    """Build the detector on `device`; weights are drawn on the CPU from
-    `generator` with the flax initialisers of the JAX package, then moved."""
+    """Build the detector on `device` (the card unless the caller asks for the
+    CPU); weights are drawn on the CPU from `generator` with the flax
+    initialisers of the JAX package, then moved."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_two_stage_rcnn: no CUDA device; pass device='cpu' to build on the CPU")
     res2 = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
     in_channels = {f"res{k}": res2 * 2 ** (k - 2) for k in range(2, 6)}
     fpn_dim = cfg.MODEL.FPN.OUT_CHANNELS

@@ -1,5 +1,11 @@
 """ResNet backbone, detectron2-compatible caffe/MSRA variant (PyTorch port of
-ubteacher_tpu.modeling.resnet, `conv` stem only).
+ubteacher_tpu.modeling.resnet).
+
+Stem modes: "conv" (cuDNN conv, FrozenBN, ReLU, max-pool) and "pallas", the
+fused stem of ops/stem.py (its CUDA kernel on the card). The fused stem reads
+the image NHWC, which is the memory order of the NCHW view the detectors
+pass in, and writes NHWC, whose NCHW view is channels-last: cuDNN takes it
+as it is, so neither side copies.
 
 Module and parameter names follow the flax tree of the JAX package
 (`res2_block0.conv1.weight`, `stem_conv1_norm.scale`, ...) so that
@@ -17,6 +23,8 @@ from typing import Dict, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.stem import stem_conv_pool
 
 # blocks per stage, keyed by depth
 RESNET_STAGES = {
@@ -82,10 +90,20 @@ class BottleneckBlock(nn.Module):
 class ResNet(nn.Module):
     """NCHW input -> {"res2": ..., "res5": ...} restricted to `out_features`."""
 
+    STEM_MODES = ("conv", "pallas")
+    # the JAX package's TPU-only stem modes (ROADMAP.md, "Do not port")
+    UNPORTED_STEM_MODES = ("s2d", "im2col", "pallas_interpret")
+
     def __init__(self, depth: int = 50, out_features: Sequence[str] = ("res3", "res4", "res5"),
                  stride_in_1x1: bool = True, stem_out_channels: int = 64,
-                 res2_out_channels: int = 256, in_channels: int = 3):
+                 res2_out_channels: int = 256, in_channels: int = 3, stem_mode: str = "conv"):
         super().__init__()
+        if stem_mode in self.UNPORTED_STEM_MODES:
+            raise ValueError(f"stem_mode {stem_mode!r} is not ported (ROADMAP.md, 'Do not port'); "
+                             f"the port runs {self.STEM_MODES}")
+        if stem_mode not in self.STEM_MODES:
+            raise ValueError(f"unknown stem_mode {stem_mode!r}; expected one of {self.STEM_MODES}")
+        self.stem_mode = stem_mode
         self.out_features = tuple(out_features)
         self.stem_conv1 = _conv(in_channels, stem_out_channels, 7, 2, 3)
         self.stem_conv1_norm = FrozenBN(stem_out_channels)
@@ -115,9 +133,19 @@ class ResNet(nn.Module):
             if isinstance(m, nn.Conv2d):
                 lecun_normal_(m.weight, generator)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stem_mode == "pallas":
+            # the output dtype the conv mode gives: bf16 under autocast
+            dt = x.device.type
+            dtype = torch.get_autocast_dtype(dt) if torch.is_autocast_enabled(dt) else torch.float32
+            y = stem_conv_pool(x.permute(0, 2, 3, 1).contiguous(), self.stem_conv1.weight.permute(2, 3, 1, 0),
+                               self.stem_conv1_norm.scale, self.stem_conv1_norm.bias, dtype)
+            return y.permute(0, 3, 1, 2)
         x = F.relu(self.stem_conv1_norm(self.stem_conv1(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        return F.max_pool2d(x, 3, 2, 1)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.stem(x)
         outputs = {}
         for stage, names in self.stages:
             for name in names:
@@ -129,12 +157,11 @@ class ResNet(nn.Module):
 
 def resnet_from_cfg(cfg) -> ResNet:
     r = cfg.MODEL.RESNETS
-    if cfg.TPU.STEM_SPACE_TO_DEPTH or cfg.TPU.STEM_MODE != "conv":
-        raise ValueError("the port implements only TPU.STEM_MODE='conv'")
     return ResNet(
         depth=r.DEPTH,
         out_features=tuple(r.OUT_FEATURES),
         stride_in_1x1=r.STRIDE_IN_1X1,
         stem_out_channels=r.STEM_OUT_CHANNELS,
         res2_out_channels=r.RES2_OUT_CHANNELS,
+        stem_mode="s2d" if cfg.TPU.STEM_SPACE_TO_DEPTH else cfg.TPU.STEM_MODE,
     )

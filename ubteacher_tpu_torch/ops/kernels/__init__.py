@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the FCOS and Faster R-CNN train steps.
+"""Hand-written Hopper kernels of the FCOS and Faster R-CNN train steps and of
+the fused stem on the evaluation path.
 
 Each kernel module holds a wrapper, the plain PyTorch version of the same
 function, and a plain-integer launch counter in `LAUNCHES`. A wrapper uses the
@@ -11,9 +12,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import focal_triton, giou_triton, matcher_cuda, nms_cuda, roi_align_cuda, row_scatter_cuda
+from . import focal_triton, giou_triton, matcher_cuda, nms_cuda, roi_align_cuda, row_scatter_cuda, stem_cuda
 
-_MODULES = (focal_triton, giou_triton, nms_cuda, matcher_cuda, roi_align_cuda, row_scatter_cuda)
+_MODULES = (focal_triton, giou_triton, nms_cuda, matcher_cuda, roi_align_cuda, row_scatter_cuda, stem_cuda)
 
 
 def launch_counts() -> Dict[str, int]:
