@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (ubteacher_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # the whole run below
+    python3 chip_smoke.py --profile-rcnn   # the R-CNN mutual step under torch.profiler
 
 1. Setup: prints the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and builds the hand-written kernels from this checkout's
    sources (one nvcc per CUDA source, all started together; the Triton
    kernels compile at their first launch) and the native COCO matcher (g++).
 2. Kernel phase: each kernel against its plain PyTorch version at the main
-   paths' shapes, with kernel and plain times as the median of 20 runs timed
-   with CUDA events. FCOS: NMS 8 images x 5000 class-offset candidates,
-   t = 0.6; focal forward and backward (343776, 80); GIoU 343776 rows.
-   Faster R-CNN: the anchor matcher over 257,796 anchors x (24, 100) gt
-   slots (bitwise); ROIAlign forward and backward over p2-p5 of 24 images,
-   256 channels, 512 rois per image (float32 and bfloat16); the row scatter
-   (24, 320, 3) and (24, 320, 12) into 85,932 rows. Evaluation: the fused
-   stem over 8 images at 800x1344 and 1344x800, float32 and bfloat16, beside
-   the port's conv-mode stem. Each row also carries the card's bound for the
-   same work and, where one PyTorch call computes the same function, that
-   call's time.
+   paths' shapes. A time is the median of 20 samples, each a run of
+   back-to-back calls (about 10 ms of work, behind one untimed call) over
+   its count: the device's time per call, not the host's launch overhead.
+   FCOS: NMS 8 images x 5000 class-offset candidates, t = 0.6; focal forward
+   and backward (343776, 80); GIoU 343776 rows. Faster R-CNN: the anchor
+   matcher over 257,796 anchors x (24, 100) gt slots (bitwise); ROIAlign
+   forward and backward over p2-p5 of 24 images, 256 channels, 512 rois per
+   image (float32 and bfloat16; the backward also on rois crowded around 20
+   objects per image, and two launches bitwise equal); the row scatter
+   (24, 320, 3) and (24, 320, 12) into 85,932 rows, with 40 duplicate rows
+   per image (two launches bitwise equal). Evaluation: the fused stem over 8
+   images at 800x1344 and 1344x800, float32 and bfloat16, beside the port's
+   conv-mode stem. Each row also carries the card's bound for the same work
+   and, where one PyTorch call computes the same function, that call's time.
 3. FCOS reference phase: one mutual step at a small size (the CPU parity
    tests' configuration) on the card through the kernels and on the CPU
    through the plain versions, from the same weights, batch and augmentation
@@ -57,6 +61,12 @@
 
 The kernels' launch counts in the JSON line are the sums over the slice
 phases (4, 6, 8, 9).
+
+With --profile-rcnn only the setup runs, then the slice configuration of
+phase 6 for one burn-in step, the boundary step and WALL_STEPS timed mutual
+steps (the step wall), then PROFILED_STEPS mutual steps under torch.profiler:
+device time per step in all, by group and by kernel. It prints no result
+line.
 
 Prints the kernels' JSON line second to last and
 {"ok": true, "device": {...}} last; exits nonzero, with no result line, on
@@ -113,6 +123,8 @@ RCNN_SMALL_OPTS = [
     "TPU.ORACLE_PSEUDO", "True",
 ]
 RCNN_SMALL_CANVAS = (64, 64)
+# --profile-rcnn: unprofiled mutual steps timed for the wall, then profiled
+WALL_STEPS, PROFILED_STEPS = 5, 3
 
 # evaluation: the test canvas and batch of both recipes (TPU.TEST_CANVAS,
 # TPU.EVAL_BATCH); 64 landscape + 16 portrait images of COCO-like sizes give
@@ -161,22 +173,38 @@ def bound(bytes_moved: float, ops: float, peak: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def median_ms(fn, runs: int = TIMED_RUNS) -> float:
+def same_bytes(a, b) -> bool:
+    """Bitwise equality of two tensors of one dtype and shape."""
     import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def median_ms(fn, runs: int = TIMED_RUNS, sample_ms: float = 10.0) -> float:
+    """Device time of one call of `fn`: the median over `runs` samples, each
+    a run of back-to-back calls between two CUDA events divided by the count.
+    The count makes a sample about `sample_ms` long; a run of more than one
+    call is queued behind one untimed call, so that the device does not wait
+    on the host's launch overhead and the sample measures the device."""
+    import torch
+
+    def timed(reps: int, lead: bool) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if lead:
+            fn()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    reps = max(1, min(200, math.ceil(sample_ms / max(timed(1, False), 1e-3))))
+    return statistics.median(timed(reps, reps > 1) for _ in range(runs))
 
 
 def build_kernels() -> None:
@@ -398,6 +426,87 @@ def rcnn_rois(gen, device, b, r):
     return torch.minimum(torch.maximum(boxes, torch.zeros((), device=device)), lim).contiguous()
 
 
+def clustered_rois(gen, device, b, r, centres=20):
+    """(b * r, 4) rois drawn around `centres` objects per image, as an RPN's
+    proposals crowd around objects: each object has a centre on the canvas
+    and a size log-uniform in [12, 900] px; each roi takes its object's size
+    times exp(N(0, 0.25)) (aspect ratio in [1/2, 2]) and its centre jittered
+    by N(0, 0.1) of that size; clipped to the canvas. The rois of one object
+    fall on one level and a few tiles, which the backward's tile-owning
+    blocks see as load imbalance."""
+    import torch
+
+    h, w = CANVAS
+    obj_ctr = torch.rand((b, centres, 2), generator=gen, device=device) * torch.tensor([w, h], device=device)
+    obj_size = torch.exp(torch.rand((b, centres), generator=gen, device=device) * math.log(900 / 12)) * 12
+    pick = torch.randint(0, centres, (b, r), generator=gen, device=device)
+    size = torch.gather(obj_size, 1, pick) * torch.exp(torch.randn((b, r), generator=gen, device=device) * 0.25)
+    ctr = torch.gather(obj_ctr, 1, pick[..., None].expand(-1, -1, 2))
+    ctr = ctr + torch.randn((b, r, 2), generator=gen, device=device) * 0.1 * size[..., None]
+    ratio = torch.exp((torch.rand((b, r), generator=gen, device=device) * 2 - 1) * math.log(2))
+    half = torch.stack([size * ratio.sqrt(), size / ratio.sqrt()], -1) / 2
+    boxes = torch.cat([ctr - half, ctr + half], -1).reshape(b * r, 4)
+    lim = torch.tensor([w, h, w, h], dtype=torch.float32, device=device)
+    return torch.minimum(torch.maximum(boxes, torch.zeros((), device=device)), lim).contiguous()
+
+
+def assert_no_host_sync(name, fn) -> None:
+    """Fails if `fn` waits for the device: queued behind about 57 ms of
+    device spin (1e8 cycles), one call must return on the host long before
+    the spin ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    log(f"{name}: {host_ms:.2f} ms of host time behind a busy device")
+    if host_ms > 20.0:
+        raise AssertionError(f"{name} waits for the device ({host_ms:.1f} ms of host time behind a busy device)")
+
+
+def check_roi_bwd(name, feats, feats16, args, grad, grad16):
+    """The backward kernel in float32 and bf16 against the plain backward,
+    and two bf16 launches against each other, bitwise. Returns (max abs err
+    float32, bf16)."""
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import roi_align_cuda
+
+    leaves = [f.clone().requires_grad_(True) for f in feats]
+    ref_g = torch.autograd.grad(roi_align_cuda.roi_align_plain(leaves, *args), leaves, grad)
+    got_g = roi_align_cuda.roi_align_backward_kernel(grad, feats, *args)
+    # bf16: the kernel on bf16 features and gradient against the plain
+    # backward in float32 on the same (upcast) values, rounded once
+    leaves16 = [f.float().requires_grad_(True) for f in feats16]
+    ref_g16 = torch.autograd.grad(roi_align_cuda.roi_align_plain(leaves16, *args), leaves16, grad16.float())
+    got_g16 = roi_align_cuda.roi_align_backward_kernel(grad16, feats16, *args)
+    again16 = roi_align_cuda.roi_align_backward_kernel(grad16, feats16, *args)
+    torch.cuda.synchronize()
+    err32 = err16 = 0.0
+    for lv, (a32, r32, a16, r16, b16) in enumerate(zip(got_g, ref_g, got_g16, ref_g16, again16)):
+        # the kernel sums each pixel's terms per roi through separable bin
+        # weights, the plain autograd tap by tap: float32 sums in two orders,
+        # 1e-5 of the level's largest gradient; bf16 adds one rounding of the
+        # result (2^-7 relative)
+        scale = float(r32.abs().max())
+        err32 = max(err32, float((a32 - r32).abs().max()))
+        err16 = max(err16, float((a16.float() - r16).abs().max()))
+        if a32.dtype != torch.float32 or a16.dtype != torch.bfloat16 or not a16.is_contiguous():
+            raise AssertionError(f"{name} p{lv + 2}: gradient dtype {a32.dtype}, {a16.dtype} or layout wrong")
+        if not torch.allclose(a32, r32, rtol=1e-5, atol=1e-5 * scale):
+            raise AssertionError(f"{name} float32 p{lv + 2}: max abs err {float((a32 - r32).abs().max())}")
+        if not torch.allclose(a16.float(), r16, rtol=2**-7, atol=1e-5 * scale):
+            raise AssertionError(f"{name} bfloat16 p{lv + 2}: max abs err {float((a16.float() - r16).abs().max())}")
+        if not same_bytes(a16, b16):
+            raise AssertionError(f"{name} p{lv + 2}: two launches on the same inputs differ")
+    log(f"{name}: max abs err float32 {err32:.3g}, bfloat16 {err16:.3g} (|grad| max "
+        f"{max(float(g.abs().max()) for g in ref_g):.3g}); two bf16 launches bitwise equal")
+    return err32, err16
+
+
 def roi_bound(boxes, level, scales, shapes, rois_per_image, channels, pooled):
     """(feature pixels some roi reads, bilinear taps): the pixels are each
     roi's sample span on its level (shifted half a pixel, clipped, widened to
@@ -505,31 +614,10 @@ def rcnn_kernel_rows(device, gen):
 
     grad = torch.randn((b * r, p, p, c), generator=gen, device=device)
     grad16 = grad.bfloat16()
+    _, err16 = check_roi_bwd("roi_align_bwd", feats, feats16, args, grad, grad16)
+    assert_no_host_sync("roi_align_bwd", lambda: roi_align_cuda.roi_align_backward_kernel(grad16, feats16, *args))
     leaves = [f.clone().requires_grad_(True) for f in feats]
     plain_out = roi_align_cuda.roi_align_plain(leaves, *args)
-    ref_g = torch.autograd.grad(plain_out, leaves, grad, retain_graph=True)
-    got_g = roi_align_cuda.roi_align_backward_kernel(grad, feats, *args)
-    # bf16: the kernel on bf16 features and gradient against the plain
-    # backward in float32 on the same (upcast) values, rounded once
-    leaves16 = [f.float().requires_grad_(True) for f in feats16]
-    ref_g16 = torch.autograd.grad(roi_align_cuda.roi_align_plain(leaves16, *args), leaves16, grad16.float())
-    got_g16 = roi_align_cuda.roi_align_backward_kernel(grad16, feats16, *args)
-    torch.cuda.synchronize()
-    err32 = err16 = 0.0
-    for lv, (a32, r32, a16, r16) in enumerate(zip(got_g, ref_g, got_g16, ref_g16)):
-        # float32 atomics add in no fixed order: 1e-5 of the level's largest
-        # gradient; bf16 adds one rounding of the result (2^-7 relative)
-        scale = float(r32.abs().max())
-        err32 = max(err32, float((a32 - r32).abs().max()))
-        err16 = max(err16, float((a16.float() - r16).abs().max()))
-        if not torch.allclose(a32, r32, rtol=1e-5, atol=1e-5 * scale):
-            raise AssertionError(f"roi_align_bwd float32 p{lv + 2}: max abs err {float((a32 - r32).abs().max())}")
-        if not torch.allclose(a16.float(), r16, rtol=2**-7, atol=1e-5 * scale):
-            raise AssertionError(f"roi_align_bwd bfloat16 p{lv + 2}: max abs err "
-                                 f"{float((a16.float() - r16).abs().max())}")
-    log(f"roi_align_bwd: max abs err float32 {err32:.3g}, bfloat16 {err16:.3g} "
-        f"(|grad| max {max(float(g.abs().max()) for g in ref_g):.3g})")
-    del got_g, got_g16, ref_g16, leaves16
     results.append({
         "name": "roi_align_bwd", "route": "cuda", "source": "ubteacher_tpu_torch/csrc/roi_align.cu",
         "replaces": "ubteacher_tpu/ops/pallas/roi_align_pallas.py:531",
@@ -541,7 +629,17 @@ def rcnn_kernel_rows(device, gen):
         **bound(pooled16 + nbytes(boxes, level, *feats16), 2 * taps, PEAK_F32),
         "library_ms": None,
     })
-    del feats, feats16, grad, grad16, leaves, plain_out, ref_g
+    del leaves, plain_out
+    # the same shapes with the rois crowded around 20 objects per image
+    cboxes = clustered_rois(gen, device, b, r)
+    clevel = (assign_levels(cboxes, 2, 5) - 2).contiguous()
+    cargs = (cboxes, clevel, r, scales, p, 0)
+    log(f"roi_align clustered: 20 objects per image, rois per level "
+        f"{torch.bincount(clevel.long(), minlength=4).tolist()}")
+    check_roi_bwd("roi_align_bwd clustered", feats, feats16, cargs, grad, grad16)
+    log(f"roi_align_bwd clustered: {median_ms(lambda: roi_align_cuda.roi_align_backward_kernel(grad16, feats16, *cargs)):.4f} ms "
+        f"bf16, {median_ms(lambda: roi_align_cuda.roi_align_backward_kernel(grad, feats, *cargs)):.4f} ms float32")
+    del feats, feats16, grad, grad16
     torch.cuda.empty_cache()
 
     # --- row scatter: the RPN gather's backward, duplicates accumulating ---
@@ -552,13 +650,20 @@ def rcnn_kernel_rows(device, gen):
     for d in (12, 3):
         g = torch.randn((RCNN_STUDENT, RCNN_RPN_ROWS, d), generator=gen, device=device)
         got = row_scatter_cuda.scatter_rows_kernel(g, rows, length)
+        again = row_scatter_cuda.scatter_rows_kernel(g, rows, length)
         ref = row_scatter_cuda.scatter_rows_plain(g, rows, length)
         torch.cuda.synchronize()
-        # float32 sums of the same terms, added in another order by the atomics
+        # float32 sums of the same terms: in k order in the kernel, in
+        # index_put_'s order in the plain version
         if not torch.allclose(got, ref, rtol=1e-6, atol=1e-5):
             raise AssertionError(f"row_scatter D={d}: max abs err {float((got - ref).abs().max())}")
+        if not same_bytes(got, again):
+            raise AssertionError(f"row_scatter D={d}: two launches on the same inputs differ")
         err = max(err, float((got - ref).abs().max()))
+        log(f"row_scatter D={d}: two launches bitwise equal; bitwise equal to the plain index_put_: "
+            f"{same_bytes(got, ref)}")
     log(f"row_scatter: ({RCNN_STUDENT}, {RCNN_RPN_ROWS}, D) into {length} rows, max abs err {err:.3g}")
+    assert_no_host_sync("row_scatter", lambda: row_scatter_cuda.scatter_rows_kernel(g, rows, length))
     g = torch.randn((RCNN_STUDENT, RCNN_RPN_ROWS, 12), generator=gen, device=device)
     # the library yardstick: one index_add_ into a zeroed (B * L, D) grid
     flat_rows = (rows + torch.arange(RCNN_STUDENT, device=device)[:, None] * length).reshape(-1)
@@ -1226,6 +1331,72 @@ def rcnn_eval_slice_phase(device):
     return counts
 
 
+# --profile-rcnn: the rows printed, their names cut to fit a log line, and
+# the groups that sum the device rows by the first pattern their name holds
+PROFILE_ROWS, PROFILE_NAME_CHARS = 60, 140
+PROFILE_GROUPS = (
+    ("ROIAlign backward", ("roi_align_backward",)), ("ROIAlign forward", ("roi_align_forward",)),
+    ("NMS", ("nms_",)), ("matcher", ("match_",)), ("row scatter", ("scatter_rows",)),
+    ("convolutions (cuDNN)", ("xmma", "cutlass", "cudnn", "nhwcAddPadding")), ("matmuls", ("nvjet", "gemm")),
+    ("memcpy, memset", ("Memcpy", "Memset")), ("sorts", ("Sort", "sort")), ("reductions", ("reduce_kernel",)),
+    ("upsample, max-pool", ("upsample", "max_pool")), ("copies and casts", ("copy",)),
+    ("gather, scatter, index, cat", ("gather", "scatter", "index", "Cat")),
+    ("elementwise", ("elementwise", "Functor", "where", "clamp", "threshold")),
+)
+
+
+def profile_rcnn_step(device) -> None:
+    """torch.profiler over PROFILED_STEPS mutual steps of the full R-CNN slice
+    configuration, after the burn-in step, the boundary step and a few
+    unprofiled mutual steps (their host-clock wall times, median, are the
+    step wall): device time per step by kernel and copy, their sum (the
+    device's busy time), their sums by PROFILE_GROUPS and the largest
+    PROFILE_ROWS rows, printed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ubteacher_tpu_torch.engine.rcnn_trainer import make_rcnn_train_steps
+
+    cfg = load_cfg(["SEMISUPNET.BURN_UP_STEP", "1"], RCNN_CFG)
+    state = build_rcnn_state(cfg, device, seed=0, cls_bias=RCNN_SLICE_CLS_BIAS)
+    batch = synthetic_batch(cfg, BATCH_LABEL, BATCH_UNLABEL, CANVAS,
+                            torch.Generator(device=device).manual_seed(1), device,
+                            num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES)
+    batch["rng"] = torch.Generator(device=device).manual_seed(2)
+    burnin, mutual = make_rcnn_train_steps(cfg)
+    state, _ = burnin(state, batch)
+    walls = []
+    for _ in range(1 + WALL_STEPS):  # the boundary step, then the timed ones
+        t0 = time.perf_counter()
+        state, _ = mutual(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            state, _ = mutual(state, batch)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():  # the device's own rows (kernels, copies): an op's row repeats its kernels
+        if e.device_type != DeviceType.CPU and e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total / PROFILED_STEPS / 1e3, e.count // PROFILED_STEPS, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    wall = statistics.median(walls[1:])
+    lines = [f"R-CNN mutual step, {BATCH_LABEL}+{BATCH_UNLABEL} images at {CANVAS}: step wall {wall:.2f} ms "
+             f"(median of {WALL_STEPS} unprofiled steps {[round(w, 2) for w in walls[1:]]}); device busy {busy:.2f} ms "
+             f"per step over {PROFILED_STEPS} profiled steps ({100 * (1 - busy / wall):.1f}% idle against the wall)"]
+    groups = {}
+    for ms, _, name in rows:
+        group = next((g for g, pats in PROFILE_GROUPS if any(p in name for p in pats)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    lines += [f"{ms:10.3f} ms {100 * ms / busy:5.1f}%  {group}" for group, ms in
+              sorted(groups.items(), key=lambda kv: -kv[1])]
+    lines += [f"{ms:10.3f} ms {calls:6d} calls  {name[:PROFILE_NAME_CHARS]}" for ms, calls, name in rows[:PROFILE_ROWS]]
+    for line in lines:
+        log(line)
+
+
 def main() -> int:
     # Triton's compile cache stays inside the checkout, beside the nvcc build
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "ubteacher_tpu_torch", "_build", "triton"))
@@ -1240,6 +1411,13 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     build_kernels()
+    if sys.argv[1:] == ["--profile-rcnn"]:
+        profile_rcnn_step(device)
+        log(name_power)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
 
     counts = {}
     phases = (("kernel", kernel_phase), ("fcos reference", reference_phase), ("fcos slice", slice_phase),

@@ -624,6 +624,9 @@ def test_new_kernel_launchers_refuse_cpu_tensors():
         roi_align_cuda.roi_align_forward_kernel([torch.zeros((1, 2, 8, 8))], torch.zeros((3, 4)),
                                                 torch.zeros(3, dtype=torch.int32), 3, [0.25], 7, 0)
     with pytest.raises(ValueError):
+        roi_align_cuda.roi_align_backward_kernel(torch.zeros((3, 7, 7, 2)), [torch.zeros((1, 2, 8, 8))],
+                                                 torch.zeros((3, 4)), torch.zeros(3, dtype=torch.int32), 3, [0.25], 7, 0)
+    with pytest.raises(ValueError):
         row_scatter_cuda.scatter_rows_kernel(torch.zeros((1, 2, 3)), torch.zeros((1, 2), dtype=torch.long), 4)
     out = row_scatter_cuda.scatter_rows(torch.ones((1, 2, 3)), torch.tensor([[1, 1]]), 4)
     assert out[0, 1].tolist() == [2.0, 2.0, 2.0]

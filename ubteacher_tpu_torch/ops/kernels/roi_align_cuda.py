@@ -3,8 +3,19 @@
 
 Replaces ubteacher_tpu/ops/pallas/roi_align_pallas.py:
 multilevel_roi_align_pallas (_fwd_kernel, _fwd_tiled_kernel, _bwd_kernel,
-_bwd_tiled_kernel). What bounds it on the H100 and what the design does about
-it is set out at the head of csrc/roi_align.cu.
+_bwd_tiled_kernel).
+
+The forward is a gather, one thread per pooled output. The backward's bound
+on the H100 is the bytes it must move (the pooled gradient in, every level's
+gradient out, zeros included); what it spends its time on is instruction
+throughput and latency per (roi, tile), not atomics: each (image, level, 16 x 32
+tile, 32 channels) of the gradient is owned by one block, which walks that
+image's rois on that level and writes the tile once, in the feature dtype.
+The wrapper prepares the walk in plain torch on the device, with no host
+sync: `group_rois` sorts the rois stably by (image, level) into segments,
+and `roi_footprints` gives each roi the pixel rectangle its samples touch,
+so a block skips the rois that miss its tile. The head of csrc/roi_align.cu
+sets the design out.
 
 Common arguments: `feats` are the per-level maps (B, C, H_l, W_l), float32 or
 bfloat16, NCHW; `boxes` (N, 4) float32 xyxy image pixels, N = B *
@@ -27,6 +38,7 @@ from . import build
 LAUNCHES = {"roi_align_fwd": 0, "roi_align_bwd": 0}
 
 MAX_LEVELS = 4
+MAX_POOLED = 16  # kMaxPooled of the backward kernel
 
 
 class _Levels(ctypes.Structure):
@@ -43,8 +55,9 @@ class _Levels(ctypes.Structure):
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build.build("roi_align"))
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ubt_roi_align_forward.argtypes = [i, ctypes.POINTER(_Levels), p, p, i, i, i, i, i, p, p]
+    lib.ubt_roi_align_backward.argtypes = [i, ctypes.POINTER(_Levels), p, p, p, p, i, i, i, i, p, p]
     for fn in (lib.ubt_roi_align_forward, lib.ubt_roi_align_backward):
-        fn.argtypes = [i, ctypes.POINTER(_Levels), p, p, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -115,6 +128,71 @@ def roi_align_forward_kernel(
     return out.permute(0, 2, 3, 1)
 
 
+def group_rois(level: torch.Tensor, batch: int, rois_per_image: int, count: int):
+    """Group the rois by (image, level) for the backward kernel. -> order
+    (N,) int64, the roi indices sorted stably by image * count + level, rois
+    whose level lies outside [0, count) last; seg (batch * count + 1,) int32,
+    where segment s = image * count + level holds order[seg[s]:seg[s + 1]].
+    Plain torch on the rois' device, with no host sync (torch.bincount reads
+    its largest entry back to the host, so the offsets are a searchsorted of
+    the sorted keys)."""
+    dev = level.device
+    segments = batch * count
+    img = torch.arange(level.shape[0], device=dev).div_(max(rois_per_image, 1), rounding_mode="floor")
+    lv = level.long()
+    key = torch.where((lv >= 0) & (lv < count), img * count + lv, segments)
+    sorted_key, order = torch.sort(key, stable=True)
+    seg = torch.searchsorted(sorted_key, torch.arange(segments + 1, device=dev), out_int32=True)
+    return order, seg
+
+
+def roi_footprints(
+    boxes: torch.Tensor,
+    level: torch.Tensor,
+    scales: Sequence[float],
+    shapes: Sequence[Sequence[int]],
+    output_size: int,
+    sampling_ratio: int,
+) -> torch.Tensor:
+    """(N, 4) int32 [y_lo, y_hi, x_lo, x_hi]: the pixels of its level that a
+    roi's bilinear samples touch, widened by one pixel on each side so that a
+    rounding difference between torch and the kernel at a pixel boundary
+    cannot drop gradient. The samples are those of ops/roi_align.py:
+    sample_coords, clipped into the map as the forward clips them, and touch
+    lo = floor(pos) and hi = min(lo + 1, H - 1); the first sample of the
+    first bin and the last of the last bound them. A roi with a non-finite
+    box or a level outside [0, len(scales)) gets the empty rectangle
+    [0, -1] x [0, -1]. `shapes` are the levels' (H, W)."""
+    from ..roi_align import ADAPTIVE_MAX_S
+
+    dev = boxes.device
+    valid = (level >= 0) & (level < len(scales)) & torch.isfinite(boxes).all(1)
+    # a non-blocking copy: torch.tensor(..., device=) and indexing with a
+    # list wait for the device
+    table = torch.tensor([[s, h, w] for s, (h, w) in zip(scales, shapes)], dtype=torch.float32)
+    table = table.to(dev, non_blocking=True)[torch.where(valid, level, 0).long()]
+    scale, last_px = table[:, :1], table[:, 1:] - 1  # (N, 1); (N, 2) as (y, x)
+    # as sample_coords: y1, x1, y2, x2 on the level, shifted half a pixel;
+    # every division by a tensor (see bin_sample_positions)
+    corners = torch.where(valid[:, None], boxes, 0.0).view(-1, 2, 2).flip(-1).reshape(-1, 4) * scale - 0.5
+    start = corners[:, :2]
+    bin_size = torch.clamp(corners[:, 2:] - start, min=1e-6)
+    bin_size = bin_size / torch.full_like(bin_size, float(output_size))
+    if sampling_ratio > 0:
+        s = torch.full_like(bin_size, float(sampling_ratio))
+    else:
+        s = torch.clamp(torch.ceil(bin_size), 1.0, float(ADAPTIVE_MAX_S))
+    # sample i of bin p sits at start + (p + (i + 0.5) / s) * bin; first:
+    # p = i = 0, last: p = P - 1, i = s - 1
+    frac = torch.stack([torch.full_like(s, 0.5), s - 0.5], -1) / s[..., None]
+    frac[..., 1] += output_size - 1
+    pos = start[..., None] + frac * bin_size[..., None]
+    pos = torch.floor(torch.minimum(pos.clamp_min(0.0), last_px[..., None]))
+    lo = torch.where(valid[:, None], (pos[..., 0] - 1).clamp_min(0.0), 0.0)
+    hi = torch.where(valid[:, None], torch.minimum(pos[..., 1] + 2, last_px), -1.0)
+    return torch.stack([lo, hi], -1).reshape(-1, 4).to(torch.int32)
+
+
 def roi_align_backward_kernel(
     grad: torch.Tensor,
     feats: Sequence[torch.Tensor],
@@ -127,7 +205,9 @@ def roi_align_backward_kernel(
 ) -> List[torch.Tensor]:
     """Launch the backward kernel: grad (N, P, P, C) of the pooled output ->
     the gradient of each level of `feats` (only their shapes and dtype are
-    read), in the feature dtype. Accumulates in float32."""
+    read), in the feature dtype and layout (NCHW, contiguous), each element
+    written once by the kernel. Accumulates in float32; bitwise the same
+    from run to run."""
     _check("roi_align_backward_kernel", feats, boxes, level, rois_per_image, scales)
     n, c, p = boxes.shape[0], feats[0].shape[1], output_size
     if grad.shape != (n, p, p, c) or grad.dtype != feats[0].dtype or grad.device != boxes.device:
@@ -135,21 +215,25 @@ def roi_align_backward_kernel(
             f"roi_align_backward_kernel: expected a {feats[0].dtype} gradient of shape {(n, p, p, c)}, "
             f"got {grad.dtype} {tuple(grad.shape)}"
         )
-    grad_ncpp = grad.permute(0, 3, 1, 2).contiguous()
-    planes = [torch.zeros(f.shape, dtype=torch.float32, device=f.device) for f in feats]
-    if n and c:
-        lv = _levels(planes, scales)
+    if not 1 <= p <= MAX_POOLED:
+        raise ValueError(f"roi_align_backward_kernel: output_size must lie in [1, {MAX_POOLED}], got {p}")
+    grad = grad.contiguous()  # autograd hands the gradient over contiguous: no copy then
+    out = [torch.empty_like(f) for f in feats]
+    if c and any(f.numel() for f in feats):
+        order, seg = group_rois(level, feats[0].shape[0], rois_per_image, len(feats))
+        foot = roi_footprints(boxes, level, scales, [f.shape[2:] for f in feats], p, sampling_ratio)[order]
+        lv = _levels(out, scales)
         lib = _library()
         with torch.cuda.device(boxes.device):
             stream = torch.cuda.current_stream(boxes.device).cuda_stream
             err = lib.ubt_roi_align_backward(
-                int(grad.dtype == torch.bfloat16), ctypes.byref(lv), boxes.data_ptr(),
-                level.data_ptr(), n, rois_per_image, c, p, sampling_ratio, grad_ncpp.data_ptr(), stream,
+                int(grad.dtype == torch.bfloat16), ctypes.byref(lv), boxes.data_ptr(), order.data_ptr(),
+                seg.data_ptr(), foot.data_ptr(), feats[0].shape[0], c, p, sampling_ratio, grad.data_ptr(), stream,
             )
         if err != 0:
             raise RuntimeError(f"roi_align backward kernel launch failed: CUDA error {err}")
         LAUNCHES["roi_align_bwd"] += 1
-    return [g.to(f.dtype) for g, f in zip(planes, feats)]
+    return out
 
 
 def _pool_chunk(feat_hwc, img, boxes, scale, output_size, sampling_ratio):

@@ -2,9 +2,14 @@
 (`csrc/row_scatter.cu`) and its plain PyTorch version.
 
 Replaces ubteacher_tpu/ops/pallas/row_gather_pallas.py:scatter_rows_pallas
-(_scatter_rows_kernel), reached from the take_rows VJP. What bounds it on the
-H100 and what the design does about it is set out at the head of
-csrc/row_scatter.cu.
+(_scatter_rows_kernel), reached from the take_rows VJP. On the H100 it is
+bound by writing its output once: a (B, L, D) float32 grid that is almost all
+zeros (99 MB at the RPN's (24, 85,932, 12)) against a few hundred gradient
+rows. So the kernel is one launch into a `torch.empty` output: each block
+owns a run of one image's grid as a shared-memory tile, adds the rows that
+land in it in k order and stores the run once, zeros included, with 16-byte
+streaming stores. The fixed order makes the sum of duplicate rows the same
+from run to run. The head of csrc/row_scatter.cu sets the design out.
 """
 
 from __future__ import annotations
@@ -32,8 +37,8 @@ def _library() -> ctypes.CDLL:
 def scatter_rows_kernel(g: torch.Tensor, rows: torch.Tensor, length: int) -> torch.Tensor:
     """Launch the CUDA kernel. g (B, K, D) f32 and rows (B, K) int64 on one
     CUDA device, contiguous. Returns (B, length, D) f32 with g[b, k] added
-    at row rows[b, k]; duplicates accumulate, rows outside [0, length) are
-    dropped."""
+    at row rows[b, k], every element written by the kernel; duplicates
+    accumulate in k order, rows outside [0, length) are dropped."""
     if not g.is_cuda or rows.device != g.device:
         raise ValueError("scatter_rows_kernel: tensors must be on one CUDA device")
     if g.dtype != torch.float32 or rows.dtype != torch.int64:
@@ -45,10 +50,10 @@ def scatter_rows_kernel(g: torch.Tensor, rows: torch.Tensor, length: int) -> tor
     if not (g.is_contiguous() and rows.is_contiguous()):
         raise ValueError("scatter_rows_kernel: tensors must be contiguous")
     b, k, d = g.shape
-    if b * k * d >= 2**31 * 256:
-        raise ValueError(f"scatter_rows_kernel: B={b}, K={k}, D={d} exceed the launch limits")
-    out = torch.zeros((b, length, d), dtype=torch.float32, device=g.device)
-    if g.numel() == 0:
+    if max(b, k, length, d) >= 2**31:
+        raise ValueError(f"scatter_rows_kernel: B={b}, K={k}, L={length}, D={d} exceed the launch limits")
+    out = torch.empty((b, length, d), dtype=torch.float32, device=g.device)
+    if out.numel() == 0:
         return out
     lib = _library()
     with torch.cuda.device(g.device):
