@@ -12,12 +12,19 @@
    paths' shapes. A time is the median of 20 samples, each a run of
    back-to-back calls (about 10 ms of work, behind one untimed call) over
    its count: the device's time per call, not the host's launch overhead.
-   FCOS: NMS 8 images x 5000 class-offset candidates, t = 0.6; focal forward
-   and backward (343776, 80); GIoU 343776 rows. Faster R-CNN: the anchor
+   FCOS: NMS 8 images x 5000 class-offset candidates, t = 0.6, and at the
+   student RPN's shape (120 rows x 2,000, t = 0.7: `ms_rpn`), its mask and
+   sweep kernels timed apart (torch.profiler, logged), on edge cases (valid
+   counts 0, 1, 63, 64, 65 and K, a staircase chain across tiles), two
+   launches bitwise equal and free of host syncs; focal forward and
+   backward (343776, 80); GIoU 343776 rows. Faster R-CNN: the anchor
    matcher over 257,796 anchors x (24, 100) gt slots (bitwise); ROIAlign
    forward and backward over p2-p5 of 24 images, 256 channels, 512 rois per
-   image (float32 and bfloat16; the backward also on rois crowded around 20
-   objects per image, and two launches bitwise equal); the row scatter
+   image (float32 and bfloat16; both also on rois crowded around 20 objects
+   per image; the forward's output contiguous (N, P, P, C), and on border,
+   degenerate, NaN, sampling-ratio-2, oversized (its direct path), P 5 and
+   96-channel rois; both two launches bitwise equal and free of host
+   syncs); the row scatter
    (24, 320, 3) and (24, 320, 12) into 85,932 rows, with 40 duplicate rows
    per image (two launches bitwise equal). Evaluation: the fused stem over 8
    images at 800x1344 and 1344x800, float32 and bfloat16, beside the port's
@@ -92,6 +99,7 @@ CANVAS = (768, 1344)
 BATCH_LABEL = BATCH_UNLABEL = 8
 MUTUAL_STEPS = 3
 NMS_B, NMS_K, NMS_T = 8, 5000, 0.6
+NMS_RPN_K, NMS_RPN_T = 2000, 0.7  # the student RPN's NMS: 24 images x 5 levels of 2,000 (MODEL.RPN.NMS_THRESH)
 FOCAL_N, FOCAL_C = 16 * 21486, 80  # labeled strong + weak at 768x1344
 GIOU_N = 16 * 21486
 TIMED_RUNS = 20
@@ -263,9 +271,9 @@ def nms_inputs(boxes, scores, classes, valid):
     return sboxes, valid.sum(-1, dtype=torch.int32)
 
 
-def settle_nms(sboxes, nvalid, got, ref) -> int:
+def settle_nms(sboxes, nvalid, got, ref, t) -> int:
     """Mismatched keep flags not explained by a pair whose float64 IoU lies
-    within 1e-6 of the threshold (those may round either way in float32)."""
+    within 1e-6 of the threshold t (those may round either way in float32)."""
     import numpy as np
 
     unsettled = 0
@@ -278,43 +286,143 @@ def settle_nms(sboxes, nvalid, got, ref) -> int:
         ih = np.clip(np.minimum(bx[:, None, 3], bx[None, :, 3]) - np.maximum(bx[:, None, 1], bx[None, :, 1]), 0, None)
         inter = iw * ih
         iou = inter / np.maximum(area[:, None] + area[None, :] - inter, 1e-12)
-        near = np.abs(iou - NMS_T) <= 1e-6
+        near = np.abs(iou - t) <= 1e-6
         for j in np.nonzero(diff[b])[0]:
             if not near[:j, j].any():
                 unsettled += 1
     return unsettled
 
 
-def fcos_kernel_rows(device, gen):
+def rpn_nms_inputs(gen, device):
+    """The student RPN's NMS call at 768x1344 (modeling/rpn.py:
+    find_top_proposals): 24 images x 5 levels = NMS_RPN_ROWS rows of
+    NMS_RPN_K candidates in score order, proposal-like boxes crowded around
+    20 objects per image, each of its level's anchor size (32 * 2^level)
+    times exp(N(0, 0.3)), aspect ratio in [1/2, 2], centre jittered by
+    N(0, 0.15) of its size, clipped to the canvas; a p6 row holds 756 valid
+    candidates (its 12 x 21 cells x 3 anchors), the others NMS_RPN_K."""
     import torch
 
-    from ubteacher_tpu_torch.ops import losses
-    from ubteacher_tpu_torch.ops.kernels import focal_triton, giou_triton, nms_cuda
+    h, w = CANVAS
+    b, k = RCNN_STUDENT, NMS_RPN_K
+    rows, counts = [], []
+    for lv in range(len(RCNN_STRIDES)):
+        stride = RCNN_STRIDES[lv]
+        centre = torch.rand((b, 20, 2), generator=gen, device=device) * torch.tensor([w, h], device=device)
+        pick = torch.randint(0, 20, (b, k), generator=gen, device=device)
+        size = 32 * 2**lv * torch.exp(torch.randn((b, k), generator=gen, device=device) * 0.3)
+        ctr = torch.gather(centre, 1, pick[..., None].expand(-1, -1, 2))
+        ctr = ctr + torch.randn((b, k, 2), generator=gen, device=device) * 0.15 * size[..., None]
+        ratio = torch.exp((torch.rand((b, k), generator=gen, device=device) * 2 - 1) * math.log(2))
+        half = torch.stack([size * ratio.sqrt(), size / ratio.sqrt()], -1) / 2
+        boxes = torch.cat([ctr - half, ctr + half], -1)
+        lim = torch.tensor([w, h, w, h], dtype=torch.float32, device=device)
+        rows.append(torch.minimum(boxes.clamp_min(0.0), lim))
+        counts.append(min(k, (h // stride) * (w // stride) * 3))
+    sboxes = torch.stack(rows, 1).reshape(b * len(rows), k, 4).contiguous()
+    nvalid = torch.tensor(counts, dtype=torch.int32, device=device).repeat(b)
+    return sboxes, nvalid
 
-    results = []
 
-    # --- NMS ---
-    sboxes, nvalid = nms_inputs(*clustered_boxes(gen, device))
-    got = nms_cuda.nms_sorted_keep_kernel(sboxes, nvalid, NMS_T)
-    ref = nms_cuda.nms_sorted_keep_plain(sboxes, nvalid, NMS_T)
+def nms_edge_cases(gen, device):
+    """(name, sboxes, nvalid, t) on which the kernel must keep exactly the
+    plain version's set: valid counts 0, 1, 63, 64, 65 and K in one call of
+    K = 200 clustered candidates (not a multiple of 64); and a staircase of
+    300 boxes 12 px apart and 100 px wide (neighbours overlap at IoU 0.79,
+    boxes two apart at 0.61), so at t 0.7 greedy keeps every other box and
+    the chain runs through all five tiles, K = 300 in a row of 320."""
+    import torch
+
+    k = 200
+    centres = torch.rand((6, 8, 2), generator=gen, device=device) * 300.0
+    pick = torch.randint(0, 8, (6, k), generator=gen, device=device)
+    ctr = torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2))
+    ctr = ctr + torch.randn((6, k, 2), generator=gen, device=device) * 6.0
+    wh = torch.rand((6, k, 2), generator=gen, device=device) * 40.0 + 10.0
+    clustered = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).contiguous()
+    counts = torch.tensor([0, 1, 63, 64, 65, k], dtype=torch.int32, device=device)
+    x = torch.arange(320, dtype=torch.float32, device=device) * 12.0
+    stair = torch.stack([x, torch.zeros_like(x), x + 100.0, torch.full_like(x, 100.0)], -1)[None].contiguous()
+    return [("valid counts 0/1/63/64/65/K, K=200", clustered, counts, 0.6),
+            ("staircase 300 of 320", stair, torch.tensor([300], dtype=torch.int32, device=device), 0.7)]
+
+
+def kernel_split_ms(fn, calls: int = 20) -> dict:
+    """Device time per call of each kernel `fn` launches: torch.profiler's
+    device rows over `calls` calls, after one untimed call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    unsettled = settle_nms(sboxes, nvalid, got, ref)
-    log(f"nms: valid {nvalid.tolist()} kept {got.sum(-1).tolist()} "
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0}
+
+
+def check_nms(name, sboxes, nvalid, t) -> int:
+    """The kernel against the plain version (no unsettled mismatch) and
+    against itself (two launches bitwise equal). Returns the mismatches."""
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import nms_cuda
+
+    got = nms_cuda.nms_sorted_keep_kernel(sboxes, nvalid, t)
+    again = nms_cuda.nms_sorted_keep_kernel(sboxes, nvalid, t)
+    ref = nms_cuda.nms_sorted_keep_plain(sboxes, nvalid, t)
+    torch.cuda.synchronize()
+    unsettled = settle_nms(sboxes, nvalid, got, ref, t)
+    log(f"nms {name}: {tuple(sboxes.shape[:2])} t {t}, valid {int(nvalid.sum())} kept {int(got.sum())} "
         f"mismatches {int((got != ref).sum())} unsettled {unsettled}")
     if unsettled:
-        raise AssertionError(f"NMS kernel disagrees with its plain version on {unsettled} candidates")
-    results.append({
+        raise AssertionError(f"NMS {name}: the kernel disagrees with its plain version on {unsettled} candidates")
+    if not same_bytes(got, again):
+        raise AssertionError(f"NMS {name}: two launches on the same inputs differ")
+    return unsettled
+
+
+def nms_row(device, gen) -> dict:
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import nms_cuda
+
+    for name, sb, nv, t in nms_edge_cases(gen, device):
+        check_nms(name, sb, nv, t)
+    sboxes, nvalid = nms_inputs(*clustered_boxes(gen, device))
+    unsettled = check_nms("FCOS shape", sboxes, nvalid, NMS_T)
+    rpn_boxes, rpn_valid = rpn_nms_inputs(gen, device)
+    check_nms("RPN shape", rpn_boxes, rpn_valid, NMS_RPN_T)
+    assert_no_host_sync("nms", lambda: nms_cuda.nms_sorted_keep_kernel(sboxes, nvalid, NMS_T))
+    for name, (sb, nv, t) in (("FCOS shape", (sboxes, nvalid, NMS_T)), ("RPN shape", (rpn_boxes, rpn_valid, NMS_RPN_T))):
+        split = kernel_split_ms(lambda: nms_cuda.nms_sorted_keep_kernel(sb, nv, t))
+        log(f"nms {name}: " + ", ".join(f"{k.split('(')[0].split('::')[-1]} {v:.4f} ms" for k, v in split.items()))
+    keep = nms_cuda.nms_sorted_keep_kernel(sboxes, nvalid, NMS_T)
+    return {
         "name": "nms", "route": "cuda", "source": "ubteacher_tpu_torch/csrc/nms.cu",
         "replaces": "ubteacher_tpu/ops/pallas/nms_pallas.py:203",
         "max_abs_err": float(unsettled),
         "ms": median_ms(lambda: nms_cuda.nms_sorted_keep_kernel(sboxes, nvalid, NMS_T)),
         "plain_ms": median_ms(lambda: nms_cuda.nms_sorted_keep_plain(sboxes, nvalid, NMS_T)),
+        "ms_rpn": median_ms(lambda: nms_cuda.nms_sorted_keep_kernel(rpn_boxes, rpn_valid, NMS_RPN_T)),
         # the overlap test of every pair of valid candidates, ~12 float32
         # operations each
-        **bound(nbytes(sboxes, nvalid, got), 12 * float((nvalid.double() * (nvalid.double() - 1) / 2).sum()),
+        **bound(nbytes(sboxes, nvalid, keep), 12 * float((nvalid.double() * (nvalid.double() - 1) / 2).sum()),
                 PEAK_F32),
         "library_ms": None,
-    })
+    }
+
+
+def fcos_kernel_rows(device, gen):
+    import torch
+
+    from ubteacher_tpu_torch.ops import losses
+    from ubteacher_tpu_torch.ops.kernels import focal_triton, giou_triton
+
+    results = [nms_row(device, gen)]
 
     # --- focal forward and backward ---
     x = torch.randn((FOCAL_N, FOCAL_C), generator=gen, device=device) * 2.0 - 3.0
@@ -467,6 +575,100 @@ def assert_no_host_sync(name, fn) -> None:
         raise AssertionError(f"{name} waits for the device ({host_ms:.1f} ms of host time behind a busy device)")
 
 
+def check_roi_fwd(name, feats, feats16, args, nan_rois=()):
+    """The forward kernel in float32 and bf16 against the plain version on
+    the same inputs, and two bf16 launches against each other, bitwise; the
+    output must be contiguous (N, P, P, C) in the feature dtype. The rois
+    `nan_rois` (a level out of range) must come out NaN in both; the others
+    are compared.
+    Returns (max abs err float32, bf16)."""
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import roi_align_cuda
+
+    boxes, level, r, scales, p, sr = args
+    n, c = boxes.shape[0], feats[0].shape[1]
+    ok = torch.ones(n, dtype=torch.bool, device=boxes.device)
+    ok[list(nan_rois)] = False
+    out32 = roi_align_cuda.roi_align_forward_kernel(feats, *args)
+    ref32 = roi_align_cuda.roi_align_plain(feats, *args)
+    out16 = roi_align_cuda.roi_align_forward_kernel(feats16, *args)
+    again16 = roi_align_cuda.roi_align_forward_kernel(feats16, *args)
+    ref16 = roi_align_cuda.roi_align_plain(feats16, *args)
+    torch.cuda.synchronize()
+    for out, dtype in ((out32, torch.float32), (out16, torch.bfloat16)):
+        if out.shape != (n, p, p, c) or out.dtype != dtype or not out.is_contiguous():
+            raise AssertionError(f"{name}: output {out.dtype} {tuple(out.shape)} stride {out.stride()}, "
+                                 f"expected contiguous {dtype} {(n, p, p, c)}")
+    if not all(bool(t[~ok].isnan().all()) for t in (out32, out16, ref32, ref16)):
+        raise AssertionError(f"{name}: a roi with its level out of range is not NaN")
+    # accumulated in float32 in both; the sums run in other orders (rtol
+    # 1e-5), and in bfloat16 each result is rounded once, so the two may sit
+    # one bf16 ulp (2^-7 relative) apart
+    a32, r32, a16, r16 = out32[ok], ref32[ok], out16[ok].float(), ref16[ok].float()
+    err32 = float((a32 - r32).abs().max()) if a32.numel() else 0.0
+    err16 = float((a16 - r16).abs().max()) if a16.numel() else 0.0
+    log(f"{name}: {n} rois, P {p}, sampling_ratio {sr}, C {c}: max abs err float32 {err32:.3g}, bfloat16 "
+        f"{err16:.3g} (|out| max {float(r32.abs().max()) if r32.numel() else 0.0:.3g}); two bf16 launches "
+        f"bitwise equal: {same_bytes(out16, again16)}")
+    if not torch.allclose(a32, r32, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{name} float32: max abs err {err32}")
+    if not torch.allclose(a16, r16, rtol=2**-7, atol=1e-5):
+        raise AssertionError(f"{name} bfloat16: max abs err {err16}")
+    if not same_bytes(out16, again16):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    return err32, err16
+
+
+def check_roi_fwd_edges(device, gen, feats, feats16, scales) -> None:
+    """The forward on the edges of its input domain, on the first two images
+    of the kernel phase's levels: rois on and across the canvas border,
+    degenerate rois (zero extent), a NaN box (its level out of range: NaN
+    out), sampling_ratio 2, rois whose footprint exceeds the staging budget
+    (the whole canvas and a thin full-width strip, pooled from p2: the
+    kernel's direct path), P = 5, and 96 channels (not a multiple of the
+    64-channel chunk)."""
+    import torch
+
+    from ubteacher_tpu_torch.ops.roi_align import assign_levels
+
+    h, w = CANVAS
+    two = [f[:2].contiguous() for f in feats]
+    two16 = [f[:2].contiguous() for f in feats16]
+    r = 16
+    rand = rcnn_rois(gen, device, 2, r)
+
+    def levels(bx):
+        return (assign_levels(bx, 2, 5) - 2).contiguous()
+
+    edge = torch.tensor([[-40, -30, 120, 90], [w - 50, h - 20, w + 60, h + 10], [0, 0, w, h], [-200, -200, -20, -20],
+                         [w - 0.5, 10, w + 0.5, 11.5], [300, 0, 700, 1], [0, 500, 3, h], [w + 5, h + 5, w + 90, h + 80]],
+                        dtype=torch.float32, device=device)
+    degenerate = torch.tensor([[30, 30, 30, 30], [10.5, 20.25, 10.5, 50], [640, 0, 900, 0], [w - 1, h - 1, w - 1, h - 1]],
+                              dtype=torch.float32, device=device)
+    border = torch.cat([edge, degenerate, rand[:2 * r - 12]]).contiguous()
+    nan = rand.clone()
+    nan[3] = float("nan")
+    big = rand.clone()
+    big[:4] = torch.tensor([[0, 0, w, h], [0, 300, w, 310], [-100, -100, w + 100, h + 100], [0, 0, 700, h]],
+                           dtype=torch.float32, device=device)
+    big_level = levels(big)
+    big_level[:4] = 0  # pooled from p2: a footprint of up to 192 x 336 pixels
+    nan_level = levels(nan)
+    if int(nan_level[3]) in range(len(scales)):
+        raise AssertionError(f"the NaN box was assigned level {int(nan_level[3])}")
+    for name, (bx, lv, p, sr), nan_rois in (
+            ("border and degenerate", (border, levels(border), 7, 0), ()),
+            ("NaN box", (nan, nan_level, 7, 0), (3,)),
+            ("sampling_ratio 2", (rand, levels(rand), 7, 2), ()),
+            ("direct path", (big, big_level.contiguous(), 7, 0), ()),
+            ("P 5", (rand, levels(rand), 5, 0), ())):
+        check_roi_fwd(f"roi_align_fwd {name}", two, two16, (bx, lv, r, scales, p, sr), nan_rois)
+    narrow = [f[:, :96].contiguous() for f in two]
+    check_roi_fwd("roi_align_fwd 96 channels", narrow, [f.bfloat16() for f in narrow],
+                  (rand, levels(rand), r, scales, 7, 0))
+
+
 def check_roi_bwd(name, feats, feats16, args, grad, grad16):
     """The backward kernel in float32 and bf16 against the plain backward,
     and two bf16 launches against each other, bitwise. Returns (max abs err
@@ -579,23 +781,9 @@ def rcnn_kernel_rows(device, gen):
     log(f"roi_align: {tuple(boxes.shape)} rois, per level {torch.bincount(level.long(), minlength=4).tolist()}, "
         f"p2 {tuple(feats[0].shape)}")
     feats16 = [f.bfloat16() for f in feats]
-    # accumulated in float32 in both; the sums run in other orders (rtol 1e-5),
-    # and in bfloat16 each result is rounded once, so the two may sit one
-    # bf16 ulp (2^-7 relative) apart
-    out32 = roi_align_cuda.roi_align_forward_kernel(feats, *args)
-    ref32 = roi_align_cuda.roi_align_plain(feats, *args)
-    out16 = roi_align_cuda.roi_align_forward_kernel(feats16, *args)
-    ref16 = roi_align_cuda.roi_align_plain(feats16, *args)
-    torch.cuda.synchronize()
-    err32 = float((out32 - ref32).abs().max())
-    err16 = float((out16.float() - ref16.float()).abs().max())
-    log(f"roi_align_fwd: max abs err float32 {err32:.3g}, bfloat16 {err16:.3g} (|out| max "
-        f"{float(ref32.abs().max()):.3g})")
-    if not torch.allclose(out32, ref32, rtol=1e-5, atol=1e-5):
-        raise AssertionError(f"roi_align_fwd float32: max abs err {err32}")
-    if not torch.allclose(out16.float(), ref16.float(), rtol=2**-7, atol=1e-5):
-        raise AssertionError(f"roi_align_fwd bfloat16: max abs err {err16}")
-    del out32, ref32, out16, ref16
+    err32, err16 = check_roi_fwd("roi_align_fwd", feats, feats16, args)
+    assert_no_host_sync("roi_align_fwd", lambda: roi_align_cuda.roi_align_forward_kernel(feats16, *args))
+    check_roi_fwd_edges(device, gen, feats, feats16, scales)
     pixels, taps = roi_bound(boxes, level, scales, [f.shape[2:] for f in feats], r, c, p)
     log(f"roi_align: {pixels} feature pixels read, {taps:.4g} bilinear taps")
     pooled16 = b * r * p * p * c * 2
@@ -636,6 +824,9 @@ def rcnn_kernel_rows(device, gen):
     cargs = (cboxes, clevel, r, scales, p, 0)
     log(f"roi_align clustered: 20 objects per image, rois per level "
         f"{torch.bincount(clevel.long(), minlength=4).tolist()}")
+    check_roi_fwd("roi_align_fwd clustered", feats, feats16, cargs)
+    log(f"roi_align_fwd clustered: {median_ms(lambda: roi_align_cuda.roi_align_forward_kernel(feats16, *cargs)):.4f} ms "
+        f"bf16, {median_ms(lambda: roi_align_cuda.roi_align_forward_kernel(feats, *cargs)):.4f} ms float32")
     check_roi_bwd("roi_align_bwd clustered", feats, feats16, cargs, grad, grad16)
     log(f"roi_align_bwd clustered: {median_ms(lambda: roi_align_cuda.roi_align_backward_kernel(grad16, feats16, *cargs)):.4f} ms "
         f"bf16, {median_ms(lambda: roi_align_cuda.roi_align_backward_kernel(grad, feats, *cargs)):.4f} ms float32")
@@ -774,6 +965,7 @@ def kernel_phase(device):
     results = fcos_kernel_rows(device, gen) + rcnn_kernel_rows(device, gen) + stem_kernel_rows(device, gen)
     for r in results:
         extra = f" (float32 {r['ms_f32']:.4f} ms)" if "ms_f32" in r else ""
+        extra += f" (RPN shape {r['ms_rpn']:.4f} ms)" if "ms_rpn" in r else ""
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         log(f"kernel {r['name']}: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms{extra}{lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err {r['max_abs_err']:.3g}")

@@ -21,17 +21,48 @@
 // roi_align_pallas.py:39-41); that clamp was a TPU artefact and is not
 // reproduced here.
 //
-// Forward. What bounds it on the H100: it is a gather. At the main path's
-// shapes (24 images x 512 rois x 256 channels x 7 x 7 outputs = 154 M
-// outputs, each an average of 4 to 16 samples of 4 corners) it issues a few
-// billion scattered 2- or 4-byte reads, which mostly hit L2 (p2 of 24 images
-// is 0.8 GB in bf16, read about once from HBM). The design (a simple kernel,
-// detectron2's layout): one thread per output element (roi, c, ph, pw), pw
-// fastest, over NCHW features; a warp covers neighbouring bins of one
-// channel of one roi, so its corner reads fall on a few rows of one feature
-// plane. The output is written (N, C, P, P), contiguous per thread, and the
-// wrapper returns it permuted to the JAX layout (N, P, P, C). Accumulation
-// in float32, one rounding to the feature dtype (float32 or bfloat16).
+// Forward. What bounds it on the H100: the bytes are the feature pixels the
+// rois read (about 1.4 M pixels x 256 channels at the main path's shapes,
+// 24 images x 512 rois, 0.73 GB in bf16) and the pooled output (0.31 GB):
+// 0.31 ms at 3.35 TB/s; the multiply-adds are a few 1e9, far under that on
+// the CUDA cores. An earlier kernel, a thread for each pooled value with pw
+// fastest, ran at 20x that bound: every output rebuilt its roi's axes and
+// taps with a dozen divisions, a warp's corner reads were scalar gathers
+// from scattered sectors of one plane, it was bound by load instructions,
+// and its (N, C, P, P) output cost a second pass to reach the box head's
+// (N, P * P * C) layout. The TPU kernel copied a window of the level into
+// VMEM and contracted it with separable bin weights on the MXU.
+//
+// What the design does about it:
+//   * One block per (roi, group of kFwdGroup channels). The roi's taps along
+//     both axes (one thread per sample and axis, make_axis / sample_tap, as
+//     the backward builds them) and its separable bin weights within its
+//     footprint (Ay: P x fh, Ax: P x fw, bin_weight x 1 / s) are computed
+//     once into shared memory; the footprint is the pixel rectangle the
+//     first and last taps bound (positions are monotone along each axis).
+//   * The footprint of kFwdChunk channels is staged in shared memory strip
+//     by strip with cp.async (8-byte pieces where the level's rows are
+//     aligned to them; a warp copies whole rows of the NCHW planes, several
+//     rows a warp where they are short, with no division per row), two
+//     strip buffers deep, so the next strip or channel chunk is in flight
+//     while the current one is contracted.
+//   * The contraction is tap-free: out[ph, pw, c] = sum_y Ay[ph, y] sum_x
+//     Ax[pw, x] F[c, y, x] over the bin's own rows and columns, float32
+//     accumulation in registers. A lane owns two channels (lane, lane + 32)
+//     and a warp a set of bins, so a feature read is one conflict-free
+//     shared load per lane (the channel stride is an odd number of words)
+//     and a weight read is a broadcast shared by both channels.
+//   * The output is written contiguous in the JAX layout (N, P, P, C), in
+//     the feature dtype, rounded once: through shared memory as 16-byte
+//     stores where C is a multiple of the chunk, else one element a lane
+//     (still coalesced). The box head's reshape is then a view.
+//   * A roi whose footprint exceeds the staging budget (a side over
+//     kMaxFoot pixels, or a row wider than a strip) is pooled by the same
+//     block straight from the global planes, tap by tap, exactly.
+//   * P = 7 with the adaptive grid is a compile-time instance; other P in
+//     [1, kMaxPooled] and sampling_ratio > 0 take the general instance.
+// A roi whose level lies outside [0, count) (a non-finite box) gets NaN and
+// reads nothing.
 //
 // Backward. The gradient of level l is
 //   dF[b, c, y, x] = sum over the rois n of image b on level l of
@@ -110,8 +141,15 @@ struct Levels {
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kAdaptiveMaxS = 8.0f;
+
+// forward: a block pools one roi for kFwdGroup channels, kFwdChunk at a time
+constexpr int kFwdWarps = 8;
+constexpr int kFwdThreads = kFwdWarps * 32;
+constexpr int kFwdChunk = 64;   // channels staged together: two per lane
+constexpr int kFwdGroup = 256;  // channels per block
+constexpr int kFwdStageBytes = 32768;  // one strip buffer; there are two
+constexpr int kMaxFoot = 128;   // footprint side (pixels) the staged path takes
 
 // backward tiling: a block owns kTileY x kTileX pixels of kChunk channels
 constexpr int kWarps = 8;
@@ -197,57 +235,266 @@ __device__ __forceinline__ float bin_weight(const Tap* taps, int n, int h) {
   return w;
 }
 
-struct Site {
-  long long n;  // roi
-  int c, ph, pw, level, b;
-};
-
-__device__ __forceinline__ Site decode(long long idx, const int* __restrict__ level, int rois_per_image,
-                                       int C, int P) {
-  Site s;
-  s.pw = static_cast<int>(idx % P);
-  s.ph = static_cast<int>((idx / P) % P);
-  s.c = static_cast<int>((idx / (static_cast<long long>(P) * P)) % C);
-  s.n = idx / (static_cast<long long>(P) * P * C);
-  s.level = level[s.n];
-  s.b = static_cast<int>(s.n / rois_per_image);
-  return s;
+// Bytes of the forward's dynamic shared memory before the strip buffers:
+// the taps of both axes and the bin weights Ay, Ax (P x kMaxFoot floats each).
+__host__ __device__ constexpr int fwd_taps_bytes(int P, int max_s) {
+  return (2 * P * max_s * static_cast<int>(sizeof(Tap)) + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int fwd_head_bytes(int P, int max_s) {
+  return fwd_taps_bytes(P, max_s) + 2 * P * kMaxFoot * static_cast<int>(sizeof(float));
 }
 
 // features per level (B, C, H, W) of T; boxes (N, 4) f32 xyxy image pixels;
-// level (N,) i32 0-based; out (N, C, P, P) of T.
-template <typename T>
-__global__ void roi_align_forward(const Levels feats, const float4* __restrict__ boxes,
-                                  const int* __restrict__ level, int rois_per_image, int C,
-                                  int P, int sampling_ratio, long long total,
-                                  T* __restrict__ out) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const Site s = decode(idx, level, rois_per_image, C, P);
-  if (s.level < 0 || s.level >= feats.count) {  // a non-finite box: NaN out, no stray read
-    out[idx] = from_float<T>(NAN);
+// level (N,) i32 0-based; out (N, P, P, C) of T. max_s the most samples per
+// bin along an axis; vec_out: C is a multiple of kFwdChunk and out 16-byte
+// aligned, so a chunk's outputs go out as 16-byte pieces. kMainPath: P ==
+// kMainPooled and max_s == 8, known to the compiler.
+template <typename T, bool kMainPath>
+__global__ void __launch_bounds__(kFwdThreads)
+roi_align_forward(const Levels feats, const float4* __restrict__ boxes, const int* __restrict__ level,
+                  int rois_per_image, int C, int pooled, int sampling_ratio, int max_samples, bool vec_out,
+                  T* __restrict__ out) {
+  const int P = kMainPath ? kMainPooled : pooled;
+  const int max_s = kMainPath ? static_cast<int>(kAdaptiveMaxS) : max_samples;
+  const int PP = P * P;
+  // output bins per warp: bin q = warp + kFwdWarps * j
+  constexpr int kBins = ((kMainPath ? kMainPooled * kMainPooled : kMaxPooled * kMaxPooled) + kFwdWarps - 1) / kFwdWarps;
+  constexpr int kStageElems = kFwdStageBytes / static_cast<int>(sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tap* const taps = reinterpret_cast<Tap*>(smem);  // [axis][p][i]
+  float* const Ay = reinterpret_cast<float*>(smem + fwd_taps_bytes(P, max_s));  // [ph][y - fy_lo]
+  float* const Ax = Ay + P * kMaxFoot;                                            // [pw][x - fx_lo]
+  T* const stage = reinterpret_cast<T*>(smem + fwd_head_bytes(P, max_s));       // two strip buffers
+  __shared__ int range[4][kMaxPooled];  // per bin: first and last row, first and last column its taps touch
+  __shared__ Axis axes[2];
+
+  const long long n = blockIdx.x;
+  const int c_begin = blockIdx.y * kFwdGroup;
+  const int group = min(kFwdGroup, C - c_begin);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int l = level[n];
+  if (l < 0 || l >= feats.count) {  // a non-finite box: NaN out, no stray read
+    for (int e = threadIdx.x; e < PP * group; e += kFwdThreads) {
+      out[(n * PP + e / group) * C + c_begin + e % group] = from_float<T>(NAN);
+    }
     return;
   }
-  const int H = feats.height[s.level];
-  const int W = feats.width[s.level];
-  const T* f = static_cast<const T*>(feats.data[s.level]) +
-               (static_cast<size_t>(s.b) * C + s.c) * H * W;
-  const float4 box = boxes[s.n];
-  const Axis ay = make_axis(box.y, box.w, feats.scale[s.level], P, sampling_ratio);
-  const Axis ax = make_axis(box.x, box.z, feats.scale[s.level], P, sampling_ratio);
-  float acc = 0.0f;
-  for (int iy = 0; iy < ay.n; ++iy) {
-    const Tap ty = sample_tap(ay, s.ph, iy, H);
-    const T* row_lo = f + static_cast<size_t>(ty.lo) * W;
-    const T* row_hi = f + static_cast<size_t>(ty.hi) * W;
-    for (int ix = 0; ix < ax.n; ++ix) {
-      const Tap tx = sample_tap(ax, s.pw, ix, W);
-      acc += ty.w_lo * (tx.w_lo * to_float(row_lo[tx.lo]) + tx.w_hi * to_float(row_lo[tx.hi])) +
-             ty.w_hi * (tx.w_lo * to_float(row_hi[tx.lo]) + tx.w_hi * to_float(row_hi[tx.hi]));
+  const int H = feats.height[l];
+  const int W = feats.width[l];
+  const int b = static_cast<int>(n / rois_per_image);
+  const T* const plane0 = static_cast<const T*>(feats.data[l]) + static_cast<size_t>(b) * C * H * W;
+
+  // every sample's taps along both axes: item u is the tap [axis][p][i]
+  // (slots past an adaptive grid stay unused)
+  {
+    const float4 box = boxes[n];
+    for (int u = threadIdx.x; u < 2 * P * max_s; u += kFwdThreads) {
+      const int axis = u / (P * max_s), p = u % (P * max_s) / max_s, i = u % max_s;
+      const Axis a = axis == 0 ? make_axis(box.y, box.w, feats.scale[l], P, sampling_ratio)
+                               : make_axis(box.x, box.z, feats.scale[l], P, sampling_ratio);
+      if (p == 0 && i == 0) axes[axis] = a;
+      if (i < a.n) taps[u] = sample_tap(a, p, i, axis == 0 ? H : W);
     }
   }
-  const float coef = __fmul_rn(__fdiv_rn(1.0f, ay.s), __fdiv_rn(1.0f, ax.s));
-  out[idx] = from_float<T>(acc * coef);
+  __syncthreads();
+  if (threadIdx.x < 2 * P) {
+    const int axis = threadIdx.x / P, p = threadIdx.x % P;
+    const Tap* const t = taps + (axis * P + p) * max_s;
+    range[2 * axis][p] = t[0].lo;
+    range[2 * axis + 1][p] = t[axes[axis].n - 1].hi;
+  }
+  __syncthreads();
+  const int fy_lo = range[0][0], fy_hi = range[1][P - 1];
+  const int fx_lo = range[2][0], fx_hi = range[3][P - 1];
+  const int fh = fy_hi - fy_lo + 1, fw = fx_hi - fx_lo + 1;
+  const int ny = axes[0].n, nx = axes[1].n;
+  const float inv_sy = __fdiv_rn(1.0f, axes[0].s), inv_sx = __fdiv_rn(1.0f, axes[1].s);
+
+  // staging geometry: rows move in 8-byte cp.async pieces where the level's
+  // rows stay 8-byte aligned, else in 4-byte pieces, else (bf16 rows of an
+  // odd width) element by element. 16-byte pieces measured slower: their
+  // channel stride is a multiple of 4 words, so the contraction's loads
+  // meet 4-way bank conflicts (8-byte pieces: 2-way).
+  auto aligned = [&](int bytes) {
+    return (W * static_cast<int>(sizeof(T))) % bytes == 0 && reinterpret_cast<uintptr_t>(plane0) % bytes == 0;
+  };
+  const int piece = aligned(8) ? 8 : aligned(4) ? 4 : static_cast<int>(sizeof(T));
+  const int E = piece / static_cast<int>(sizeof(T));                  // elements per piece
+  const int x_al = fx_lo / E * E;                                      // first staged column
+  const int pitch = ((fx_hi - x_al) / E + 1) * E;                      // staged row, elements
+  constexpr int kSlack = 16 / static_cast<int>(sizeof(T));            // room to pad the channel stride
+  const int rows = min(fh, (kStageElems / kFwdChunk - kSlack) / pitch);  // rows per strip
+  const bool staged = fh <= kMaxFoot && fw <= kMaxFoot && rows >= 1;
+
+  float acc0[kBins], acc1[kBins];  // channels lane and lane + 32 of this warp's bins
+
+  // one chunk's outputs: through shared memory as 16-byte pieces, or a lane
+  // at a time
+  auto store = [&](int c0, T* st) {
+    if (vec_out && PP * kFwdChunk * static_cast<int>(sizeof(T)) <= kFwdStageBytes) {
+#pragma unroll
+      for (int j = 0; j < kBins; ++j) {
+        const int q = warp + kFwdWarps * j;
+        if (q < PP) {
+          st[q * kFwdChunk + lane] = from_float<T>(acc0[j]);
+          st[q * kFwdChunk + lane + 32] = from_float<T>(acc1[j]);
+        }
+      }
+      __syncthreads();
+      constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+      constexpr int kPieces = kFwdChunk / kVec;  // per bin
+      for (int e = threadIdx.x; e < PP * kPieces; e += kFwdThreads) {
+        const int q = e / kPieces, k = e % kPieces;
+        *reinterpret_cast<uint4*>(out + (n * PP + q) * C + c0 + k * kVec) =
+            *reinterpret_cast<const uint4*>(st + q * kFwdChunk + k * kVec);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kBins; ++j) {
+        const int q = warp + kFwdWarps * j;
+        if (q < PP) {
+          T* const o = out + (n * PP + q) * C + c0;
+          if (c0 + lane < C) o[lane] = from_float<T>(acc0[j]);
+          if (c0 + lane + 32 < C) o[lane + 32] = from_float<T>(acc1[j]);
+        }
+      }
+    }
+  };
+
+  const int chunks = (group + kFwdChunk - 1) / kFwdChunk;
+  if (!staged) {
+    // a footprint past the staging budget: tap by tap from the planes
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int c0 = c_begin + ch * kFwdChunk;
+#pragma unroll
+      for (int j = 0; j < kBins; ++j) {
+        acc0[j] = acc1[j] = 0.0f;
+        const int q = warp + kFwdWarps * j;
+        if (q >= PP) continue;
+        const Tap* const ty = taps + (q / P) * max_s;
+        const Tap* const tx = taps + (P + q % P) * max_s;
+        for (int k = 0; k < 2; ++k) {
+          const int c = c0 + lane + 32 * k;
+          if (c >= C) continue;
+          const T* const f = plane0 + static_cast<size_t>(c) * H * W;
+          float a = 0.0f;
+          for (int iy = 0; iy < ny; ++iy) {
+            const T* const r_lo = f + static_cast<size_t>(ty[iy].lo) * W;
+            const T* const r_hi = f + static_cast<size_t>(ty[iy].hi) * W;
+            for (int ix = 0; ix < nx; ++ix) {
+              const Tap t = tx[ix];
+              a += ty[iy].w_lo * (t.w_lo * to_float(r_lo[t.lo]) + t.w_hi * to_float(r_lo[t.hi])) +
+                   ty[iy].w_hi * (t.w_lo * to_float(r_hi[t.lo]) + t.w_hi * to_float(r_hi[t.hi]));
+            }
+          }
+          if (k) {
+            acc1[j] = a * __fmul_rn(inv_sy, inv_sx);
+          } else {
+            acc0[j] = a * __fmul_rn(inv_sy, inv_sx);
+          }
+        }
+      }
+      __syncthreads();  // the store's staging area is the first strip buffer
+      store(c0, stage);
+      __syncthreads();
+    }
+    return;
+  }
+
+  // the separable bin weights within the footprint
+  for (int e = threadIdx.x; e < P * (fh + fw); e += kFwdThreads) {
+    if (e < P * fh) {
+      const int p = e / fh, y = e % fh;
+      Ay[p * kMaxFoot + y] = bin_weight(taps + p * max_s, ny, fy_lo + y) * inv_sy;
+    } else {
+      const int p = (e - P * fh) / fw, x = (e - P * fh) % fw;
+      Ax[p * kMaxFoot + x] = bin_weight(taps + (P + p) * max_s, nx, fx_lo + x) * inv_sx;
+    }
+  }
+
+  // channel stride in the strip buffer: an odd number of pieces of at least
+  // a word, so that the 32 lanes (32 channels) of a shared load spread over
+  // as many banks as the piece alignment allows (all 32 for 4-byte pieces)
+  const int unit = max(E, 4 / static_cast<int>(sizeof(T)));  // elements
+  int stride = (rows * pitch + unit - 1) / unit;
+  stride = (stride | 1) * unit;
+  const int strips = (fh + rows - 1) / rows;
+  const int tiles = chunks * strips;
+  // copy strip `tile` (chunk tile / strips, rows of strip tile % strips)
+  // into buffer tile % 2, in the background
+  auto issue = [&](int tile) {
+    const int c0 = c_begin + (tile / strips) * kFwdChunk;
+    const int ys = fy_lo + (tile % strips) * rows;
+    const int nr = min(rows, fy_hi + 1 - ys);
+    T* const dst = stage + (tile & 1) * kStageElems;
+    const T* const src = plane0 + static_cast<size_t>(c0) * H * W + static_cast<size_t>(ys) * W + x_al;
+    const int units = pitch / E;  // pieces per staged row
+    const int lanes = units <= 8 ? 8 : units <= 16 ? 16 : 32;  // lanes per staged row
+    const int per_warp = 32 / lanes;
+    // warp w copies channels w, w + kFwdWarps, ..., per_warp rows at a time
+    for (int cc = warp; cc < min(kFwdChunk, C - c0); cc += kFwdWarps) {
+      const T* s = src + static_cast<size_t>(cc) * H * W + static_cast<size_t>(lane / lanes) * W;
+      T* d = dst + cc * stride + (lane / lanes) * pitch;
+      for (int r = lane / lanes; r < nr; r += per_warp, s += per_warp * W, d += per_warp * pitch) {
+        for (int x = lane % lanes; x < units; x += lanes) {
+          if (piece == 8) {
+            __pipeline_memcpy_async(d + x * E, s + x * E, 8);
+          } else if (piece == 4) {
+            __pipeline_memcpy_async(d + x * E, s + x * E, 4);
+          } else {
+            d[x] = s[x];
+          }
+        }
+      }
+    }
+    __pipeline_commit();
+  };
+
+  issue(0);
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) {
+      issue(tile + 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // the strip (and, on the first tile, the weights) is in shared memory
+    const int strip = tile % strips;
+    const int ys = fy_lo + strip * rows;
+    const int ye = min(ys + rows, fy_hi + 1);
+    const T* const buf = stage + (tile & 1) * kStageElems;
+#pragma unroll
+    for (int j = 0; j < kBins; ++j) {
+      if (strip == 0) acc0[j] = acc1[j] = 0.0f;
+      const int q = warp + kFwdWarps * j;
+      if (q >= PP) continue;
+      const int ph = q / P, pw = q % P;
+      const int y0 = max(range[0][ph], ys), y1 = min(range[1][ph], ye - 1);
+      const int xa = range[2][pw], xn = range[3][pw] - xa + 1;
+      const float* const ax = Ax + pw * kMaxFoot + (xa - fx_lo);
+      const float* wy = Ay + ph * kMaxFoot + (y0 - fy_lo);
+      const T* f = buf + lane * stride + (y0 - ys) * pitch + (xa - x_al);
+      float a0 = acc0[j], a1 = acc1[j];
+      for (int y = y0; y <= y1; ++y, ++wy, f += pitch) {
+        float s0 = 0.0f, s1 = 0.0f;
+        for (int x = 0; x < xn; ++x) {
+          const float w = ax[x];
+          s0 += w * to_float(f[x]);
+          s1 += w * to_float(f[x + 32 * stride]);
+        }
+        a0 += *wy * s0;
+        a1 += *wy * s1;
+      }
+      acc0[j] = a0;
+      acc1[j] = a1;
+    }
+    if (strip == strips - 1) {
+      __syncthreads();  // every warp is done with this buffer: the store stages through it
+      store(c_begin + (tile / strips) * kFwdChunk, stage + (tile & 1) * kStageElems);
+    }
+    __syncthreads();  // the next iteration's copies overwrite this buffer
+  }
 }
 
 __host__ __device__ __forceinline__ int tiles_of(int H, int W) {
@@ -491,10 +738,6 @@ roi_align_backward(const Levels grads, const float4* __restrict__ boxes, const l
   }
 }
 
-unsigned int blocks_for(long long total) {
-  return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
-}
-
 template <typename T>
 int launch_backward(const Levels& grads, const float4* boxes, const long long* order, const int* seg,
                     const int4* foot, int batch, int C, int P, int sampling_ratio, const T* grad_out,
@@ -522,27 +765,36 @@ int launch_backward(const Levels& grads, const float4* boxes, const long long* o
 }  // namespace
 
 // is_bf16: 0 for float32 features, 1 for bfloat16. feats: per-level (B, C, H,
-// W) planes; boxes (N, 4) f32; level (N,) i32 0-based; out (N, C, P, P).
-// Returns the cudaError_t of the launch (0 on success); launches on `stream`
-// and does not synchronise.
+// W) planes; boxes (N, 4) f32; level (N,) i32 0-based; out (N, P, P, C),
+// contiguous. Returns the cudaError_t of the launch (0 on success); launches
+// on `stream` and does not synchronise.
 extern "C" int ubt_roi_align_forward(int is_bf16, const Levels* feats, const float* boxes,
                                      const int* level, int num_rois, int rois_per_image,
                                      int channels, int pooled, int sampling_ratio, void* out,
                                      void* stream) {
-  const long long total = static_cast<long long>(num_rois) * channels * pooled * pooled;
-  if (total == 0) return 0;
+  if (pooled < 1 || pooled > kMaxPooled || sampling_ratio < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rois == 0 || channels == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* b4 = reinterpret_cast<const float4*>(boxes);
+  const int max_s = sampling_ratio > 0 ? sampling_ratio : static_cast<int>(kAdaptiveMaxS);
+  const bool main_path = pooled == kMainPooled && max_s == static_cast<int>(kAdaptiveMaxS);
+  const size_t bytes = static_cast<size_t>(fwd_head_bytes(pooled, max_s)) + 2 * kFwdStageBytes;
+  const bool vec_out = channels % kFwdChunk == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid(static_cast<unsigned int>(num_rois), (channels + kFwdGroup - 1) / kFwdGroup);
+  auto launch = [&](auto kernel, auto* typed_out) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kFwdThreads, bytes, s>>>(*feats, b4, level, rois_per_image, channels, pooled, sampling_ratio,
+                                             max_s, vec_out, typed_out);
+    return static_cast<int>(cudaGetLastError());
+  };
   if (is_bf16) {
-    roi_align_forward<__nv_bfloat16><<<blocks_for(total), kThreads, 0, s>>>(
-        *feats, b4, level, rois_per_image, channels, pooled, sampling_ratio, total,
-        static_cast<__nv_bfloat16*>(out));
-  } else {
-    roi_align_forward<float><<<blocks_for(total), kThreads, 0, s>>>(
-        *feats, b4, level, rois_per_image, channels, pooled, sampling_ratio, total,
-        static_cast<float*>(out));
+    auto* o = static_cast<__nv_bfloat16*>(out);
+    return main_path ? launch(roi_align_forward<__nv_bfloat16, true>, o)
+                     : launch(roi_align_forward<__nv_bfloat16, false>, o);
   }
-  return static_cast<int>(cudaGetLastError());
+  auto* o = static_cast<float*>(out);
+  return main_path ? launch(roi_align_forward<float, true>, o) : launch(roi_align_forward<float, false>, o);
 }
 
 // grads: per-level (B, C, H, W) planes in the feature dtype (is_bf16 as

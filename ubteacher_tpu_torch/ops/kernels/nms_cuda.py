@@ -3,9 +3,14 @@
 
 Replaces ubteacher_tpu/ops/pallas/nms_pallas.py:nms_keep_pallas
 (_nms_core / _nms_kernel). What bounds it on the H100 and what the design does
-about it is set out at the head of csrc/nms.cu: all-pairs overlap bits in
-64-wide words computed in parallel over (tile, tile, image), then one short
-sweep per image, with the work bounded by each image's valid count.
+about it is set out at the head of csrc/nms.cu. The all-pairs overlap test is
+little arithmetic; the greedy pass is a latency chain of one step per 64-row
+tile. So the overlap bits are computed in parallel over (tile, tile, image)
+into 64-bit words stored column-word-major (B, words, K), which makes both
+the stores and the sweep's loads coalesced; then one block per image sweeps
+the tiles, one warp resolving each tile's chain by a fixpoint of warp-wide
+OR-reductions while the others have already loaded the words they fold into
+the later tiles. The work is bounded by each image's valid count.
 
 Sorting, the class-offset trick and the scatter back to input order stay in
 torch (ops/nms.py), as they sit outside the Pallas call in JAX.
@@ -71,7 +76,7 @@ def nms_sorted_keep_kernel(
     keep = torch.empty((b, k), dtype=torch.bool, device=sboxes.device)
     if b == 0 or k == 0:
         return keep
-    mask = torch.empty((b, k, words), dtype=torch.int64, device=sboxes.device)
+    mask = torch.empty((b, words, k), dtype=torch.int64, device=sboxes.device)
     lib = _library()
     with torch.cuda.device(sboxes.device):
         stream = torch.cuda.current_stream(sboxes.device).cuda_stream

@@ -5,17 +5,24 @@ Replaces ubteacher_tpu/ops/pallas/roi_align_pallas.py:
 multilevel_roi_align_pallas (_fwd_kernel, _fwd_tiled_kernel, _bwd_kernel,
 _bwd_tiled_kernel).
 
-The forward is a gather, one thread per pooled output. The backward's bound
-on the H100 is the bytes it must move (the pooled gradient in, every level's
-gradient out, zeros included); what it spends its time on is instruction
-throughput and latency per (roi, tile), not atomics: each (image, level, 16 x 32
-tile, 32 channels) of the gradient is owned by one block, which walks that
-image's rois on that level and writes the tile once, in the feature dtype.
-The wrapper prepares the walk in plain torch on the device, with no host
+Both directions are bound on the H100 by the bytes they must move (the
+feature pixels the rois read and the pooled output; the pooled gradient in
+and every level's gradient out), and both spend their time on instruction
+issue and latency instead, so both are built around per-roi work done once
+and shared: the same taps (make_axis / sample_tap) and separable bin weights.
+The forward runs one block per (roi, 256 channels): the roi's taps and bin
+weights are computed once into shared memory, its footprint is staged there
+64 channels at a time with cp.async from the NCHW planes, contracted with
+the weights in float32 registers, and written contiguous in the JAX layout
+(N, P, P, C), so the box head's reshape is a view; it needs no host-side
+preparation. The backward owns each (image, level, 16 x 32 tile, 32
+channels) of the gradient with one block, which walks that image's rois on
+that level and writes the tile once, in the feature dtype, with no atomics.
+The wrapper prepares that walk in plain torch on the device, with no host
 sync: `group_rois` sorts the rois stably by (image, level) into segments,
 and `roi_footprints` gives each roi the pixel rectangle its samples touch,
 so a block skips the rois that miss its tile. The head of csrc/roi_align.cu
-sets the design out.
+sets both designs out.
 
 Common arguments: `feats` are the per-level maps (B, C, H_l, W_l), float32 or
 bfloat16, NCHW; `boxes` (N, 4) float32 xyxy image pixels, N = B *
@@ -38,7 +45,7 @@ from . import build
 LAUNCHES = {"roi_align_fwd": 0, "roi_align_bwd": 0}
 
 MAX_LEVELS = 4
-MAX_POOLED = 16  # kMaxPooled of the backward kernel
+MAX_POOLED = 16  # kMaxPooled of the kernels
 
 
 class _Levels(ctypes.Structure):
@@ -108,11 +115,16 @@ def roi_align_forward_kernel(
     output_size: int,
     sampling_ratio: int,
 ) -> torch.Tensor:
-    """Launch the forward kernel. Returns (N, P, P, C): a permuted view of
-    the kernel's (N, C, P, P) output."""
+    """Launch the forward kernel. Returns (N, P, P, C), contiguous, in the
+    feature dtype; a roi whose level lies outside [0, len(feats)) gets NaN."""
     _check("roi_align_forward_kernel", feats, boxes, level, rois_per_image, scales)
     n, c, p = boxes.shape[0], feats[0].shape[1], output_size
-    out = torch.empty((n, c, p, p), dtype=feats[0].dtype, device=boxes.device)
+    if not 1 <= p <= MAX_POOLED or sampling_ratio < 0:
+        raise ValueError(
+            f"roi_align_forward_kernel: output_size must lie in [1, {MAX_POOLED}] and sampling_ratio be >= 0, "
+            f"got {p}, {sampling_ratio}"
+        )
+    out = torch.empty((n, p, p, c), dtype=feats[0].dtype, device=boxes.device)
     if n and c:
         lv = _levels(feats, scales)
         lib = _library()
@@ -125,7 +137,7 @@ def roi_align_forward_kernel(
         if err != 0:
             raise RuntimeError(f"roi_align forward kernel launch failed: CUDA error {err}")
         LAUNCHES["roi_align_fwd"] += 1
-    return out.permute(0, 2, 3, 1)
+    return out
 
 
 def group_rois(level: torch.Tensor, batch: int, rois_per_image: int, count: int):
@@ -285,18 +297,16 @@ def roi_align_plain(
     """Plain version, one level and `roi_chunk` rois at a time (the full
     sample grid of every roi on every level would not fit at p2 x 24
     images). Differentiable in `feats` through autograd. -> (N, P, P, C) in
-    the feature dtype."""
+    the feature dtype; a roi whose level lies outside [0, len(feats)) gets
+    NaN, as in the kernel."""
     n = boxes.shape[0]
     c, p = feats[0].shape[1], output_size
     img = torch.arange(n, device=boxes.device) // rois_per_image
-    pooled, order = [], []
+    out = feats[0].new_full((n, p, p, c), float("nan"))
     for lv, (f, scale) in enumerate(zip(feats, scales)):
         hwc = f.permute(0, 2, 3, 1)
         sel_all = torch.nonzero(level == lv)[:, 0]
         for start in range(0, sel_all.numel(), roi_chunk):
             sel = sel_all[start:start + roi_chunk]
-            pooled.append(_pool_chunk(hwc, img[sel], boxes[sel], scale, p, sampling_ratio).to(f.dtype))
-            order.append(sel)
-    if not pooled:
-        return feats[0].new_zeros((n, p, p, c))
-    return torch.cat(pooled)[torch.argsort(torch.cat(order))]
+            out[sel] = _pool_chunk(hwc, img[sel], boxes[sel], scale, p, sampling_ratio).to(f.dtype)
+    return out
