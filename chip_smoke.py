@@ -18,7 +18,11 @@
    counts 0, 1, 63, 64, 65 and K, a staircase chain across tiles), two
    launches bitwise equal and free of host syncs; focal forward and
    backward (343776, 80); GIoU 343776 rows. Faster R-CNN: the anchor
-   matcher over 257,796 anchors x (24, 100) gt slots (bitwise); ROIAlign
+   matcher over 257,796 anchors x (24, 100) gt slots, bitwise, with and
+   without the low-quality promotion, also at the R-CNN step's mix
+   (`ms_step`: images 16-23 with all 100 slots valid) and on edge cases
+   (-0.0, duplicated, zero-area, off-canvas, canvas-covering and
+   non-finite gts, an image with no valid slot); ROIAlign
    forward and backward over p2-p5 of 24 images, 256 channels, 512 rois per
    image (float32 and bfloat16; both also on rois crowded around 20 objects
    per image; the forward's output contiguous (N, P, P, C), and on border,
@@ -27,8 +31,12 @@
    syncs); the row scatter
    (24, 320, 3) and (24, 320, 12) into 85,932 rows, with 40 duplicate rows
    per image (two launches bitwise equal). Evaluation: the fused stem over 8
-   images at 800x1344 and 1344x800, float32 and bfloat16, beside the port's
-   conv-mode stem. Each row also carries the card's bound for the same work
+   images at 800x1344 and 1344x800, float32 and bfloat16, read in place from
+   an NCHW batch (a contiguous NHWC copy and the ResNet "pallas" stem must
+   give the same bits), at 799x1343 and 5x3 with B = 1 and with non-finite
+   pixels, timed alone and as the model calls it (`ms_call`), beside the
+   port's conv-mode stem; the bf16 kernel's SASS must hold tensor-core
+   instructions. Each row also carries the card's bound for the same work
    and, where one PyTorch call computes the same function, that call's time.
 3. FCOS reference phase: one mutual step at a small size (the CPU parity
    tests' configuration) on the card through the kernels and on the CPU
@@ -737,38 +745,113 @@ def roi_bound(boxes, level, scales, shapes, rois_per_image, channels, pooled):
     return pixels, taps
 
 
+def matcher_edge_cases(device, anchors):
+    """(name, gt (B, M, 4), mask (B, M)) cases the culling must keep exact:
+    -0.0 coordinates, ties across duplicated gts, a gt equal to an anchor
+    (IoU exactly 1), zero-area gts (a point, a vertical line), gts outside
+    the canvas and covering it, non-finite gts (NaN, +-inf), an image with no
+    valid slot, and slot 0 invalid before valid ones."""
+    import torch
+
+    h, w = CANVAS
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def rand_boxes(b, m):
+        xy = torch.rand((b, m, 2), generator=gen, device=device) * torch.tensor([w, h], device=device)
+        wh = torch.rand((b, m, 2), generator=gen, device=device) * 300 + 1
+        return torch.cat([xy, xy + wh], -1)
+
+    b, m = 6, 12
+    gt = rand_boxes(b, m)
+    mask = torch.ones((b, m), dtype=torch.bool, device=device)
+    gt[0, 0] = torch.tensor([-0.0, -0.0, 40.0, 40.0], device=device)
+    gt[0, 1] = torch.tensor([0.0, -0.0, -0.0, 50.0], device=device)
+    gt[0, 3] = gt[0, 2]                                   # duplicated gt: the first slot wins ties
+    gt[0, 5] = gt[0, 4]
+    gt[1, 0] = anchors[4000]                              # IoU exactly 1
+    gt[1, 1] = anchors[200000]
+    gt[1, 2] = torch.tensor([300.0, 300.0, 300.0, 300.0], device=device)   # a point
+    gt[1, 3] = torch.tensor([500.0, 100.0, 500.0, 400.0], device=device)   # a vertical line
+    gt[2, 0] = torch.tensor([-500.0, -400.0, -100.0, -50.0], device=device)  # outside the canvas
+    gt[2, 1] = torch.tensor([w + 10.0, 0.0, w + 900.0, h], device=device)
+    gt[2, 2] = torch.tensor([0.0, 0.0, w, h], device=device)               # covers the canvas
+    gt[2, 3] = torch.tensor([-2000.0, -2000.0, 4000.0, 4000.0], device=device)
+    nan, inf = float("nan"), float("inf")
+    gt[3, 0] = torch.tensor([nan, 10.0, 200.0, 200.0], device=device)
+    gt[3, 1] = torch.tensor([10.0, 10.0, inf, 200.0], device=device)
+    gt[3, 2] = torch.tensor([-inf, -inf, inf, inf], device=device)
+    gt[3, 3] = torch.tensor([inf, 10.0, -inf, 200.0], device=device)
+    mask[4] = False                                       # no valid slot
+    mask[5, :3] = False                                   # the first valid slot is 3
+    mask[5, -1] = False
+    return [("edges", gt.contiguous(), mask.contiguous())]
+
+
+def matcher_row(device, gen):
+    """The anchor matcher, bitwise against its plain version: at the kernel
+    phase's gts (matcher_gt), at the R-CNN step's mix (images 0-15 those,
+    16-23 with all 100 slots valid, as the teacher's pseudo boxes fill them)
+    and on edge cases; timed at both (`ms`, `ms_step`). Also logs the pairs
+    the culled design computes against all valid pairs and the overlapping
+    ones."""
+    import torch
+
+    from ubteacher_tpu_torch.modeling.matcher import match_quality
+    from ubteacher_tpu_torch.ops.kernels import matcher_cuda
+
+    anchors = rcnn_anchors(CANVAS, device)["anchors"]
+    gt, mask = matcher_gt(gen, device, anchors)
+    step_mask = mask.clone()
+    step_mask[2 * BATCH_LABEL:] = True
+    sets = [("kernel phase", gt, mask), ("step mix", gt, step_mask.contiguous())]
+    sets += matcher_edge_cases(device, anchors)
+    err = 0
+    for name, g, m in sets:
+        for low in (True, False):
+            idx, lab = matcher_cuda.match_anchors_kernel(anchors, g, m, allow_low_quality=low)
+            idx_ref, lab_ref = matcher_cuda.match_anchors_plain(anchors, g, m, allow_low_quality=low)
+            torch.cuda.synchronize()
+            wrong = int((idx != idx_ref).sum() + (lab != lab_ref).sum())
+            if not low:
+                if wrong:
+                    raise AssertionError(f"matcher {name} without promotion: {wrong} entries differ")
+                continue
+            cand = matcher_cuda.warp_candidates(anchors, g, m)
+            overlap = sum(int((match_quality(g[i:i + 1], m[i:i + 1], anchors) > 0).sum()) for i in range(g.shape[0]))
+            log(f"matcher {name}: {anchors.shape[0]} anchors x {tuple(m.shape)} gt slots, valid per image "
+                f"{m.sum(-1).tolist()}, positives {int((lab == 1).sum())}, ignored {int((lab == -1).sum())}, "
+                f"mismatched entries {wrong}; pairs: valid {anchors.shape[0] * int(m.sum())}, computed per pass "
+                f"{matcher_cuda.WARP * int(cand.sum())}, overlapping {overlap}")
+            if wrong:
+                raise AssertionError(f"matcher kernel differs from its plain version in {wrong} entries ({name})")
+            err = max(err, int((idx - idx_ref).abs().max()) if idx.numel() else 0,
+                      int((lab - lab_ref).abs().max()) if lab.numel() else 0)
+            if name == "kernel phase":
+                needed = overlap  # the pairs whose IoU is not 0
+        del idx_ref, lab_ref
+    row = {
+        "name": "matcher", "route": "cuda", "source": "ubteacher_tpu_torch/csrc/matcher.cu",
+        "replaces": "ubteacher_tpu/ops/pallas/matcher_pallas.py:182",
+        "max_abs_err": float(err),
+        "ms": median_ms(lambda: matcher_cuda.match_anchors_kernel(anchors, gt, mask)),
+        "ms_step": median_ms(lambda: matcher_cuda.match_anchors_kernel(anchors, gt, step_mask)),
+        "plain_ms": median_ms(lambda: matcher_cuda.match_anchors_plain(anchors, gt, mask)),
+        # the outputs written once; one IoU (~12 float32 operations) per
+        # overlapping pair, the only pairs whose IoU is not 0
+        **bound(nbytes(anchors, gt, mask) + 2 * 8 * mask.shape[0] * anchors.shape[0], 12 * needed, PEAK_F32),
+        "library_ms": None,
+    }
+    torch.cuda.empty_cache()
+    return row
+
+
 def rcnn_kernel_rows(device, gen):
     import torch
 
-    from ubteacher_tpu_torch.ops.kernels import matcher_cuda, roi_align_cuda, row_scatter_cuda
+    from ubteacher_tpu_torch.ops.kernels import roi_align_cuda, row_scatter_cuda
     from ubteacher_tpu_torch.ops.roi_align import assign_levels
 
-    results = []
-
-    # --- anchor matcher: bitwise ---
-    anchors = rcnn_anchors(CANVAS, device)["anchors"]
-    gt, mask = matcher_gt(gen, device, anchors)
-    idx, lab = matcher_cuda.match_anchors_kernel(anchors, gt, mask)
-    idx_ref, lab_ref = matcher_cuda.match_anchors_plain(anchors, gt, mask)
-    torch.cuda.synchronize()
-    wrong = int((idx != idx_ref).sum() + (lab != lab_ref).sum())
-    log(f"matcher: {anchors.shape[0]} anchors x {tuple(mask.shape)} gt slots, valid per image "
-        f"{mask.sum(-1).tolist()}, positives {int((lab == 1).sum())}, ignored {int((lab == -1).sum())}, "
-        f"mismatched entries {wrong}")
-    if wrong:
-        raise AssertionError(f"matcher kernel differs from its plain version in {wrong} entries")
-    results.append({
-        "name": "matcher", "route": "cuda", "source": "ubteacher_tpu_torch/csrc/matcher.cu",
-        "replaces": "ubteacher_tpu/ops/pallas/matcher_pallas.py:182",
-        "max_abs_err": float(max((idx - idx_ref).abs().max(), (lab - lab_ref).abs().max())),
-        "ms": median_ms(lambda: matcher_cuda.match_anchors_kernel(anchors, gt, mask)),
-        "plain_ms": median_ms(lambda: matcher_cuda.match_anchors_plain(anchors, gt, mask)),
-        # one IoU (~12 float32 operations) per anchor and valid gt
-        **bound(nbytes(anchors, gt, mask, idx, lab), 12 * anchors.shape[0] * int(mask.sum()), PEAK_F32),
-        "library_ms": None,
-    })
-    del idx_ref, lab_ref
-    torch.cuda.empty_cache()
+    results = [matcher_row(device, gen)]
 
     # --- ROIAlign forward and backward, float32 and bfloat16 ---
     b, c, p, r = RCNN_STUDENT, 256, 7, RCNN_ROIS
@@ -884,75 +967,172 @@ def bf16_ulp(v):
     return torch.pow(2.0, torch.floor(torch.log2(v.abs().clamp_min(2.0**-126))) - 7)
 
 
+def stem_sass_mma() -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of the fused stem's
+    bf16 kernel, counted with cuobjdump from the built library."""
+    from ubteacher_tpu_torch.ops.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.library_path("stem")], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {"HMMA": 0, "HGMMA": 0}, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+        elif "stem_conv_pool_mma" in fn:
+            for op in counts:
+                counts[op] += f" {op}." in line or f" {op} " in line
+    return counts
+
+
+def stem_truth64(x, kernel, scale, bias):
+    """The stem in float64 from the float32 folded weights: the truth the
+    float32 results are held to."""
+    import torch
+    import torch.nn.functional as F
+
+    k = (kernel.float() * scale.float()).double()
+    acc = F.conv2d(x.double().permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), stride=2, padding=3)
+    y = torch.relu(acc + bias.double()[:, None, None])
+    return F.max_pool2d(y, 3, 2, 1).permute(0, 2, 3, 1)
+
+
+def check_stem(name, x, kernel, scale, bias):
+    """The fused stem kernel in float32 and bf16, reading x (B, H, W, 3) at
+    x's own strides, against its plain version on the same values (a
+    contiguous NHWC copy: there cuDNN sums the float32 conv in the kernel's
+    order, where on the NCHW view it picks another order, and two float32
+    results, each within the tolerance of the float64 truth, can differ by
+    twice it; port_tools/stem_f32_check.py). float32: JAX's own tolerance
+    (test_stem_pallas.py), rtol 1e-5 / atol 1e-4, against the plain version
+    and against the float64 truth. bf16: the float32 sum is rounded once to
+    bf16 and the bias added in bf16, so an output may sit one ulp of the sum
+    (|out| + |bias| bounds it) plus one ulp of the bias add from the plain
+    version's. Only outputs the plain version keeps finite are compared (a
+    non-finite pixel makes its windows NaN there). Returns (bf16 max abs
+    err, bf16 output, float32 output, float32 plain output)."""
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import stem_cuda
+    from ubteacher_tpu_torch.ops.stem import stem_conv_pool_plain
+
+    b, h, w, _ = x.shape
+    xc = x.contiguous()
+    ref32 = stem_conv_pool_plain(xc, kernel, scale, bias, torch.float32)
+    got32 = stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, torch.float32)
+    truth = stem_truth64(xc, kernel, scale, bias)
+    ref16 = stem_conv_pool_plain(xc, kernel, scale, bias, torch.bfloat16).float()
+    out16 = stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, torch.bfloat16)
+    got16 = out16.float()
+    torch.cuda.synchronize()
+    del xc
+    shape = (b, -(-h // 4), -(-w // 4), 64)
+    fin32, fin16 = torch.isfinite(ref32), torch.isfinite(ref16)
+    err32 = float((got32 - ref32)[fin32].abs().max())
+    err64 = float((got32.double() - truth)[fin32].abs().max())
+    err16 = torch.where(fin16, (got16 - ref16).abs(), torch.zeros((), device=x.device))
+    tol16 = 2 * bf16_ulp(ref16.nan_to_num().abs() + bias.bfloat16().float().abs())
+    log(f"stem {name} {tuple(x.shape)} strides {x.stride()}: max abs err float32 {err32:.3g} (against the "
+        f"float64 truth {err64:.3g}), bfloat16 {float(err16.max()):.3g} ({int((err16 > 0).sum())} of "
+        f"{err16.numel()} outputs differ; {int((~fin16).sum())} not finite in the plain version)")
+    if (got32.shape != shape or got16.shape != shape
+            or not torch.allclose(got32[fin32], ref32[fin32], rtol=1e-5, atol=1e-4)
+            or not torch.allclose(got32[fin32].double(), truth[fin32], rtol=1e-5, atol=1e-4)):
+        raise AssertionError(f"stem float32 {name}: shape {tuple(got32.shape)}, max abs err {err32} "
+                             f"(float64 truth {err64})")
+    del truth
+    if not bool((err16 <= tol16).all()):
+        raise AssertionError(f"stem bfloat16 {name}: {int((err16 > tol16).sum())} outputs beyond two bf16 ulps")
+    return float(err16.max()), out16, got32, ref32
+
+
 def stem_kernel_rows(device, gen):
     """The fused stem at the eval canvases of 8 images, landscape and
-    portrait, in float32 and bfloat16, against its plain version; and the
-    port's conv-mode stem (cuDNN conv, FrozenBN, ReLU, max-pool under bf16
-    autocast) on the same weights, timed as the yardstick and held against
-    the float32 result like the kernel's bf16 output."""
+    portrait, in float32 and bfloat16, against its plain version, read in
+    place from an NCHW batch (the layout the model hands it) and from a
+    contiguous NHWC copy (bitwise the same); at odd sizes and B = 1; with
+    non-finite pixels. Timed: the kernel (`ms`, bf16; float32 logged),
+    the ResNet "pallas" stem as the model calls it, from NCHW under bf16
+    autocast (`ms_call`), and the port's conv-mode stem (cuDNN conv,
+    FrozenBN, ReLU, max-pool under bf16 autocast) on the same weights as the
+    yardstick, held against the float32 result like the kernel's bf16
+    output. Logs the tensor-core instructions in the bf16 kernel's SASS and
+    fails without them."""
     import torch
 
     from ubteacher_tpu_torch.modeling.resnet import ResNet
     from ubteacher_tpu_torch.ops.kernels import stem_cuda
     from ubteacher_tpu_torch.ops.stem import stem_conv_pool_plain
 
+    sass = stem_sass_mma()
+    log(f"stem bf16 kernel SASS: {sass['HMMA']} HMMA, {sass['HGMMA']} HGMMA instructions")
+    if not sass["HMMA"] + sass["HGMMA"]:
+        raise AssertionError("the stem's bf16 kernel has no tensor-core instructions")
     torch.backends.cudnn.allow_tf32 = False  # the plain float32 conv in full float32
     kernel = torch.randn((7, 7, 3, 64), generator=gen, device=device) * 0.1
     scale = torch.rand((64,), generator=gen, device=device) * 1.5 + 0.5
     bias = torch.randn((64,), generator=gen, device=device)
-    conv = ResNet(depth=18, out_features=("res2",), stem_mode="conv").to(device)
-    with torch.no_grad():
-        conv.stem_conv1.weight.copy_(kernel.permute(3, 2, 0, 1))
-        conv.stem_conv1_norm.scale.copy_(scale)
-        conv.stem_conv1_norm.bias.copy_(bias)
+    nets = {}
+    for mode in ("conv", "pallas"):
+        nets[mode] = ResNet(depth=18, out_features=("res2",), stem_mode=mode).to(device)
+        with torch.no_grad():
+            nets[mode].stem_conv1.weight.copy_(kernel.permute(3, 2, 0, 1))
+            nets[mode].stem_conv1_norm.scale.copy_(scale)
+            nets[mode].stem_conv1_norm.bias.copy_(bias)
 
-    def conv_stem(x):
+    def stem(mode, x_nchw):
         with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
-            return conv.stem(x.permute(0, 3, 1, 2))
+            return nets[mode].stem(x_nchw)
 
     err = 0.0
     for orient, (h, w) in (("landscape", EVAL_CANVAS), ("portrait", EVAL_CANVAS[::-1])):
-        x = torch.randn((EVAL_BATCH, h, w, 3), generator=gen, device=device) * 50
-        ref32 = stem_conv_pool_plain(x, kernel, scale, bias, torch.float32)
-        got32 = stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, torch.float32)
-        ref16 = stem_conv_pool_plain(x, kernel, scale, bias, torch.bfloat16).float()
-        got16 = stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, torch.bfloat16).float()
-        conv16 = conv_stem(x).permute(0, 2, 3, 1).float()
+        x_nchw = torch.randn((EVAL_BATCH, 3, h, w), generator=gen, device=device) * 50
+        x = x_nchw.permute(0, 2, 3, 1)  # the model's view: no copy
+        e16, out16, got32, ref32 = check_stem(orient, x, kernel, scale, bias)
+        err = max(err, e16)
+        conv16 = stem("conv", x_nchw).permute(0, 2, 3, 1).float()
+        call16 = stem("pallas", x_nchw).permute(0, 2, 3, 1)
+        nhwc = x.contiguous()
         torch.cuda.synchronize()
-        err32 = float((got32 - ref32).abs().max())
-        err16 = (got16 - ref16).abs()
-        # float32: JAX's own tolerance (test_stem_pallas.py), the 147
-        # products summed in another order. bf16: the float32 sum is rounded
-        # once to bf16 and the bias added in bf16, so an output may sit one
-        # ulp of the sum (|out| + |bias| bounds it) plus one ulp of the
-        # bias add from the plain version's
-        tol16 = 2 * bf16_ulp(ref16.abs() + bias.bfloat16().float().abs())
-        log(f"stem {orient} {tuple(x.shape)}: max abs err float32 {err32:.3g}, bfloat16 {float(err16.max()):.3g} "
-            f"({int((err16 > 0).sum())} of {err16.numel()} outputs differ); against the float32 result: kernel "
-            f"bf16 {float((got16 - ref32).abs().max()):.4g}, conv-mode bf16 {float((conv16 - ref32).abs().max()):.4g} "
-            f"(|out| max {float(ref32.abs().max()):.4g})")
-        if got32.shape != (EVAL_BATCH, -(-h // 4), -(-w // 4), 64) or not torch.allclose(got32, ref32, rtol=1e-5,
-                                                                                          atol=1e-4):
-            raise AssertionError(f"stem float32 {orient}: shape {tuple(got32.shape)}, max abs err {err32}")
-        if not bool((err16 <= tol16).all()):
-            raise AssertionError(f"stem bfloat16 {orient}: {int((err16 > tol16).sum())} outputs beyond two bf16 ulps")
-        err = max(err, float(err16.max()))
+        if not (same_bytes(stem_cuda.stem_conv_pool_kernel(nhwc, kernel, scale, bias, torch.bfloat16), out16)
+                and same_bytes(stem_cuda.stem_conv_pool_kernel(nhwc, kernel, scale, bias, torch.float32), got32)
+                and same_bytes(call16.contiguous(), out16)):
+            raise AssertionError(f"stem {orient}: the NHWC copy or the ResNet call differs from the NCHW view")
+        log(f"stem {orient}: against the float32 result: kernel bf16 {float((out16.float() - ref32).abs().max()):.4g}, "
+            f"conv-mode bf16 {float((conv16 - ref32).abs().max()):.4g} (|out| max {float(ref32.abs().max()):.4g}); "
+            "NHWC copy and ResNet call bitwise equal to the NCHW view")
         if orient == "landscape":
-            out_bytes = got16.numel() * 2
+            out_bytes = out16.numel() * 2
             ho, wo = -(-h // 2), -(-w // 2)
             row = {
                 "name": "stem", "route": "cuda", "source": "ubteacher_tpu_torch/csrc/stem.cu",
                 "replaces": "ubteacher_tpu/ops/pallas/stem_pallas.py:255",
                 "ms": median_ms(lambda: stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, torch.bfloat16)),
+                "ms_call": median_ms(lambda: stem("pallas", x_nchw)),
                 "plain_ms": median_ms(lambda: stem_conv_pool_plain(x, kernel, scale, bias, torch.bfloat16)),
                 "ms_f32": median_ms(lambda: stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, torch.float32)),
                 # the image in and the pooled bf16 output; the conv's bf16
                 # multiply-adds on the tensor cores
                 **bound(nbytes(x) + out_bytes, 2.0 * EVAL_BATCH * ho * wo * 64 * 147, PEAK_BF16_TENSOR),
                 # four calls (conv, FrozenBN, ReLU, max-pool): no one call computes the stem
-                "library_ms": median_ms(lambda: conv_stem(x)),
+                "library_ms": median_ms(lambda: stem("conv", x_nchw)),
             }
-        del x, ref32, got32, ref16, got16, conv16
+            log(f"stem: kernel {row['ms']:.4f} ms, as ResNet calls it {row['ms_call']:.4f} ms "
+                f"({1e3 * (row['ms_call'] - row['ms']):.1f} us more)")
+        del x_nchw, x, nhwc, out16, got32, ref32, conv16, call16
+    # odd sizes at B = 1, NCHW views
+    for h, w in ((799, 1343), (5, 3)):
+        x = (torch.randn((1, 3, h, w), generator=gen, device=device) * 50).permute(0, 2, 3, 1)
+        err = max(err, check_stem(f"odd {h}x{w}", x, kernel, scale, bias)[0])
+    # non-finite pixels: each poisons only the windows that hold it; the pad
+    # taps beside a window must read zeros, not its neighbour
+    x = torch.randn((2, 64, 128, 3), generator=gen, device=device) * 50
+    x[0, 10, 20, 1] = float("nan")
+    x[0, 20, 30, :] = float("nan")  # column 4 q + 6: the pad taps of conv column 2 q + 1 would read it
+    x[0, 40, 77, 0] = float("inf")
+    x[1, 33, 3:6, 2] = float("-inf")
+    x[1, 50, 100:128:3, :] = float("nan")
+    err = max(err, check_stem("non-finite pixels", x, kernel, scale, bias)[0])
     row["max_abs_err"] = err
     torch.cuda.empty_cache()
     return [row]

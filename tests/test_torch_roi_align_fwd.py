@@ -151,3 +151,38 @@ def test_pooled_layout_is_what_the_box_head_reads():
     assert flat.data_ptr() == out.data_ptr() and flat.shape == (B, boxes.shape[1], 7 * 7 * C)
     head = FastRCNNConvFCHead(7 * 7 * C, 16, 1)
     torch.testing.assert_close(head(out), torch.relu(head.fc1(flat)))
+
+
+def bf16_errors(seed=0, r=10):
+    """Max abs error against the float32 exact result, on the same bf16
+    features, of the JAX reference in bf16 (roi_align_matmul, which casts
+    the bin weights to the feature dtype, ubteacher_tpu/ops/roi_align.py:185)
+    and of the port's plain version in bf16 (weights kept in float32):
+    (port error, JAX error, largest |output|)."""
+    rng = np.random.default_rng(seed)
+    feats16 = [torch.from_numpy(f).bfloat16() for f in _feats(rng)]
+    feats32 = [f.float().numpy() for f in feats16]
+    boxes = torch.from_numpy(_boxes("random", rng, r).astype(np.float32))
+    level = _levels(boxes, "random")
+    truth = _reference(feats32, boxes.numpy(), level.numpy(), 7, 0, r)
+    port = roi_align_plain(feats16, boxes, level, r, SCALES, 7, 0).float().numpy()
+    img = np.arange(boxes.shape[0]) // r
+    jax16 = np.zeros_like(truth)
+    for b in range(B):
+        for lv, scale in enumerate(SCALES):
+            sel = np.nonzero((img == b) & (level.numpy() == lv))[0]
+            if sel.size:
+                hwc = jnp.asarray(feats32[lv][b].transpose(1, 2, 0), dtype=jnp.bfloat16)
+                jax16[sel] = np.asarray(j_roi_align_matmul(hwc, jnp.asarray(boxes.numpy()[sel]), scale, 7, 0),
+                                        dtype=np.float32)
+    return float(np.abs(port - truth).max()), float(np.abs(jax16 - truth).max()), float(np.abs(truth).max())
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_bf16_no_less_accurate_than_jax_bf16(seed):
+    """A kept deviation (ROADMAP Queue C): in bf16 the JAX package rounds the
+    bin weights to bf16, the port keeps them in float32. On the same bf16
+    features the port's error against the float32 result is no larger than
+    the JAX reference's."""
+    port_err, jax_err, _ = bf16_errors(seed)
+    assert port_err <= jax_err

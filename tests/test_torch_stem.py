@@ -168,3 +168,89 @@ def test_stem_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         stem_cuda.stem_conv_pool_kernel(*args, torch.float32)
     assert stem_cuda.LAUNCHES == before
+
+
+def _staged(x, hp, wp):
+    """The bf16 kernel's staging in float32: pixel (r, u) of the image,
+    zero padded by 3 on the top and left and out to hp x wp, laid out row by
+    row with the 3 channels interleaved, (B, hp, 3 wp). Each value is read
+    from x's storage at b sb + r sh + u sw + ci sc, x's own strides, as the
+    kernel reads it."""
+    b, h, w, _ = x.shape
+    flat = torch.as_strided(x, (x.untyped_storage().nbytes() // x.element_size(),), (1,), 0)
+    sb, sh, sw, sc = x.stride()
+    r = torch.arange(hp)[:, None, None] - 3
+    u = torch.arange(wp)[None, :, None] - 3
+    ci = torch.arange(3)[None, None, :]
+    inside = (r >= 0) & (r < h) & (u >= 0) & (u < w)
+    idx = x.storage_offset() + r.clamp(0, h - 1) * sh + u.clamp(0, w - 1) * sw + ci * sc
+    out = torch.stack([torch.where(inside, flat[bi * sb + idx], 0.0) for bi in range(b)])
+    return out.reshape(b, hp, wp * 3).contiguous()
+
+
+def _kdecomp_stem(x, kernel, scale, bias, mask_pad=True):
+    """The tensor-core kernel's K decomposition in float32: for each of the 7
+    ky slices, A is a strided view of the staged rows (conv pixel (r, c),
+    tap t at element 6 c + t of staged row 2 r + ky) over 24 taps, the last
+    3 zeroed (or, with mask_pad=False, left reading the next pixel), and B
+    holds the 21 folded weights of the slice and 3 zero rows; the sum over
+    the slices, the bias, ReLU, 0 outside the conv output, then the 3-row and
+    3-column maxima."""
+    b, h, w, _ = x.shape
+    ho, wo = -(-h // 2), -(-w // 2)
+    hp, wp = 2 * ho + 7, 2 * wo + 7  # the last conv column's pad taps stay inside
+    st = _staged(x, hp, wp)
+    kf = kernel.float() * scale.float()
+    acc = torch.zeros((b, ho, wo, 64))
+    sb, sr, _ = st.stride()
+    for ky in range(7):
+        a = torch.as_strided(st, (b, ho, wo, 24), (sb, 2 * sr, 6, 1), ky * sr)
+        if mask_pad:
+            a = torch.where(torch.arange(24) < 21, a, 0.0)
+        bm = torch.cat([kf[ky].reshape(21, 64), torch.zeros((3, 64))])
+        acc = acc + a @ bm
+    y = torch.relu(acc + bias.float())
+    y = torch.nn.functional.pad(y, (0, 0, 1, 1, 1, 1))  # 0 outside: every window holds a real tap >= 0
+    y = torch.maximum(torch.maximum(y[:, :, :-2], y[:, :, 1:-1]), y[:, :, 2:])[:, :, ::2]
+    return torch.maximum(torch.maximum(y[:, :-2], y[:, 1:-1]), y[:, 2:])[:, ::2]
+
+
+@pytest.mark.parametrize("hw", [(61, 99), (5, 3), (128, 224)])
+def test_kernel_k_decomposition_matches_plain(hw):
+    """The bf16 kernel's K layout (7 ky slices of 24 taps, zero pad) over
+    strided views, from the NHWC tensor and from the permuted view of an
+    NCHW tensor (bitwise the same), equals the plain version in float32,
+    and the Pallas kernel interpreted where the JAX tests run it (H % 4 ==
+    0)."""
+    x, k, s, b = _inputs(2, *hw, seed=11)
+    xt = torch.from_numpy(x)
+    nchw_view = xt.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not nchw_view.is_contiguous()
+    args = [torch.from_numpy(a) for a in (k, s, b)]
+    got = _kdecomp_stem(xt, *args)
+    assert torch.equal(_kdecomp_stem(nchw_view, *args), got)
+    ref = stem_conv_pool_plain(xt, *args, torch.float32)
+    assert got.shape == ref.shape == (2, stem_cuda.pooled_size(hw[0]), stem_cuda.pooled_size(hw[1]), 64)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-4)
+    if hw[0] % 4 == 0 and hw[1] % 4 == 0:
+        jref = np.asarray(j_stem(*map(jnp.asarray, (x, k, s, b)), jnp.float32, True))
+        np.testing.assert_allclose(got.numpy(), jref, rtol=1e-5, atol=1e-4)
+
+
+def test_kernel_pad_taps_must_read_zero():
+    """A NaN pixel just right of a conv window (column 4 q + 6, read by the
+    pad taps of conv column 2 q + 1) leaves the plain version's pooled
+    column q finite: the decomposition with the pad taps masked keeps it so,
+    and reading the next pixel there instead (0 weight, but NaN x 0) would
+    not."""
+    x, k, s, b = _inputs(1, 32, 48, seed=12)
+    x[0, 10, 4 * 3 + 6, 1] = np.nan
+    xt = torch.from_numpy(x)
+    args = [torch.from_numpy(a) for a in (k, s, b)]
+    ref = stem_conv_pool_plain(xt, *args, torch.float32)
+    fin = torch.isfinite(ref)
+    assert bool(fin[0, :, 3].all()) and not bool(fin.all())
+    got = _kdecomp_stem(xt, *args)
+    np.testing.assert_allclose(got[fin].numpy(), ref[fin].numpy(), rtol=1e-5, atol=1e-4)
+    leaky = _kdecomp_stem(xt, *args, mask_pad=False)
+    assert not bool(torch.isfinite(leaky[0, :, 3]).all())

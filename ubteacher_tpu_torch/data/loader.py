@@ -8,9 +8,10 @@ are CPU tensors, assembled in numpy buffers by a thread pool (so iterating
 under torch.inference_mode is fine); the evaluator moves them to the model's
 device.
 
-The resize is torch's bilinear interpolation (align_corners=False, no
-antialiasing), the sampling of cv2.INTER_LINEAR, computed in float32; cv2
-is imported only by the default image reader.
+The resize (`resize_bilinear`) is a numpy replica of
+cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR) on uint8 images,
+bitwise, as the JAX loader calls it; cv2 is imported only by the default
+image reader.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def default_image_loader(file_name: str) -> np.ndarray:
@@ -37,11 +37,60 @@ def default_image_loader(file_name: str) -> np.ndarray:
     return img
 
 
-def resize_bilinear(img: np.ndarray, nh: int, nw: int) -> torch.Tensor:
-    """(H, W, 3) image -> (nh, nw, 3) float32, cv2.INTER_LINEAR's sampling."""
-    x = torch.from_numpy(np.ascontiguousarray(img)).float().permute(2, 0, 1)[None]
-    y = F.interpolate(x, size=(nh, nw), mode="bilinear", align_corners=False, antialias=False)
-    return y[0].permute(1, 2, 0)
+def _linear_taps(dst: int, src: int):
+    """cv2's source index and fraction per output position: the centre
+    (d + 0.5) * (1 / (dst / src)) - 0.5 in float64, rounded to float32,
+    floored."""
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+    s = np.floor(f)
+    return s.astype(np.int64), (f - s).astype(np.float32)
+
+
+def _fixed_point(frac: np.ndarray):
+    """The two 11-bit weights (1 - f, f) * 2048, each rounded to nearest even
+    from float32 (cv2's saturate_cast<short>)."""
+    one, scale = np.float32(1), np.float32(2048)
+    return np.rint((one - frac) * scale).astype(np.int32), np.rint(frac * scale).astype(np.int32)
+
+
+def resize_bilinear(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """(H, W, C) uint8 -> (nh, nw, C) uint8, bitwise equal to
+    cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR) (OpenCV's
+    fixed-point path for 8-bit images), without cv2.
+
+    The arithmetic is cv2's: an exact 2x downscale of both sides is its
+    2x2 area mean ((a + b + c + d + 2) >> 2); an unchanged size is a copy.
+    Otherwise the horizontal pass sums two taps with 11-bit weights into an
+    int (a tap left of the image takes the first column with weight 2048, one
+    right of it the last), and the vertical pass, cv2's vector one, takes
+    ((((S0 >> 4) * b0) >> 16) + (((S1 >> 4) * b1) >> 16) + 2) >> 2 over the
+    two source rows, clamped to the image, and saturates to uint8. The
+    vertical fractions are not clamped at the borders; the clamped rows
+    repeat instead."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3:
+        raise ValueError(f"resize_bilinear: expected (H, W, C) uint8, got {img.dtype} {img.shape}")
+    h, w, cn = img.shape
+    if nh < 1 or nw < 1:
+        raise ValueError(f"resize_bilinear: output size ({nh}, {nw}) is empty")
+    if (nh, nw) == (h, w):
+        return img.copy()
+    if (h, w) == (2 * nh, 2 * nw):
+        a = img.astype(np.int32)
+        return ((a[0::2, 0::2] + a[0::2, 1::2] + a[1::2, 0::2] + a[1::2, 1::2] + 2) >> 2).astype(np.uint8)
+    sx, fx = _linear_taps(nw, w)
+    edge = (sx < 0) | (sx >= w - 1)
+    fx[edge] = 0
+    sx = np.clip(sx, 0, w - 1)
+    a0, a1 = _fixed_point(fx)
+    px = img.astype(np.int32)  # sums stay below 2**27
+    rows = px[:, sx] * a0[:, None] + px[:, np.minimum(sx + 1, w - 1)] * a1[:, None]  # (h, nw, cn)
+    sy, fy = _linear_taps(nh, h)
+    b0, b1 = _fixed_point(fy)
+    s0 = rows[np.clip(sy, 0, h - 1)] >> 4
+    s1 = rows[np.clip(sy + 1, 0, h - 1)] >> 4
+    out = (((s0 * b0[:, None, None]) >> 16) + ((s1 * b1[:, None, None]) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 class TestDataLoader:
@@ -97,7 +146,7 @@ class TestDataLoader:
                 s2 = min(ch / nh, cw / nw)
                 nh, nw = int(nh * s2), int(nw * s2)
                 scale = scale * s2
-            images[i, :nh, :nw] = resize_bilinear(img, nh, nw).numpy()
+            images[i, :nh, :nw] = resize_bilinear(img, nh, nw)
             hw[i] = (nh, nw)
             scales[i] = scale
 

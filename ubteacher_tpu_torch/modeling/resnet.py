@@ -135,10 +135,12 @@ class ResNet(nn.Module):
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         if self.stem_mode == "pallas":
-            # the output dtype the conv mode gives: bf16 under autocast
+            # the output dtype the conv mode gives: bf16 under autocast. The
+            # kernel reads the NCHW batch through its (B, H, W, 3) view in
+            # place: no NHWC copy
             dt = x.device.type
             dtype = torch.get_autocast_dtype(dt) if torch.is_autocast_enabled(dt) else torch.float32
-            y = stem_conv_pool(x.permute(0, 2, 3, 1).contiguous(), self.stem_conv1.weight.permute(2, 3, 1, 0),
+            y = stem_conv_pool(x.permute(0, 2, 3, 1), self.stem_conv1.weight.permute(2, 3, 1, 0),
                                self.stem_conv1_norm.scale, self.stem_conv1_norm.bias, dtype)
             return y.permute(0, 3, 1, 2)
         x = F.relu(self.stem_conv1_norm(self.stem_conv1(x)))
