@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # the whole run below
     python3 chip_smoke.py --profile-rcnn   # the R-CNN mutual step under torch.profiler
+    python3 chip_smoke.py --profile-fcos   # the FCOS mutual step under torch.profiler
 
 1. Setup: prints the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and builds the hand-written kernels from this checkout's
@@ -17,7 +18,14 @@
    sweep kernels timed apart (torch.profiler, logged), on edge cases (valid
    counts 0, 1, 63, 64, 65 and K, a staircase chain across tiles), two
    launches bitwise equal and free of host syncs; focal forward and
-   backward (343776, 80); GIoU 343776 rows. Faster R-CNN: the anchor
+   backward (343776, 80); the GIoU forward and backward at 343776 rows (the
+   upstream gradient stride 0, as rows.sum() hands it back) and on edge
+   sets (random, ties in 1, 2 and 4 coordinates, ac == 0, weight 0, inf and
+   NaN preds at weight 0 and above; NaN positions equal to the plain
+   versions'), the backward also against autograd of the plain forward,
+   both two launches bitwise equal and free of host syncs, each with its
+   device time (torch.profiler, `device_ms`) and host time per call
+   (`host_ms`) beside the back-to-back `ms`. Faster R-CNN: the anchor
    matcher over 257,796 anchors x (24, 100) gt slots, bitwise, with and
    without the low-quality promotion, also at the R-CNN step's mix
    (`ms_step`: images 16-23 with all 100 slots valid) and on edge cases
@@ -30,7 +38,8 @@
    96-channel rois; both two launches bitwise equal and free of host
    syncs); the row scatter
    (24, 320, 3) and (24, 320, 12) into 85,932 rows, with 40 duplicate rows
-   per image (two launches bitwise equal). Evaluation: the fused stem over 8
+   per image (two launches bitwise equal; timed in 5 rounds beside
+   `index_add_`, with its device time). Evaluation: the fused stem over 8
    images at 800x1344 and 1344x800, float32 and bfloat16, read in place from
    an NCHW batch (a contiguous NHWC copy and the ResNet "pallas" stem must
    give the same bits), at 799x1343 and 5x3 with B = 1 and with non-finite
@@ -77,11 +86,11 @@
 The kernels' launch counts in the JSON line are the sums over the slice
 phases (4, 6, 8, 9).
 
-With --profile-rcnn only the setup runs, then the slice configuration of
-phase 6 for one burn-in step, the boundary step and WALL_STEPS timed mutual
-steps (the step wall), then PROFILED_STEPS mutual steps under torch.profiler:
-device time per step in all, by group and by kernel. It prints no result
-line.
+With --profile-rcnn (--profile-fcos) only the setup runs, then the slice
+configuration of phase 6 (phase 4) for one burn-in step, the boundary step
+and WALL_STEPS timed mutual steps (the step wall), then PROFILED_STEPS
+mutual steps under torch.profiler: device time per step in all, by group
+and by kernel, and the kernel launches per step. It prints no result line.
 
 Prints the kernels' JSON line second to last and
 {"ok": true, "device": {...}} last; exits nonzero, with no result line, on
@@ -111,11 +120,12 @@ NMS_RPN_K, NMS_RPN_T = 2000, 0.7  # the student RPN's NMS: 24 images x 5 levels 
 FOCAL_N, FOCAL_C = 16 * 21486, 80  # labeled strong + weak at 768x1344
 GIOU_N = 16 * 21486
 TIMED_RUNS = 20
+SCATTER_ROUNDS = 5
 # cls_logits bias for the slice: sigmoid(1.0) = 0.73 lifts the random-init
 # teacher's scores past INFERENCE_TH_TRAIN (0.05) and BBOX_THRESHOLD (0.5);
 # with the prior-probability bias (-4.6) a teacher on noise feeds NMS nothing
 SLICE_CLS_BIAS = 1.0
-FCOS_KERNELS = ("nms", "focal_fwd", "focal_bwd", "giou_fwd")
+FCOS_KERNELS = ("nms", "focal_fwd", "focal_bwd", "giou_fwd", "giou_bwd")
 
 # Faster R-CNN main path: the fused mutual step's student batch is labeled
 # strong + weak + unlabeled strong (3 x 8), every RPN image samples 64
@@ -428,7 +438,7 @@ def fcos_kernel_rows(device, gen):
     import torch
 
     from ubteacher_tpu_torch.ops import losses
-    from ubteacher_tpu_torch.ops.kernels import focal_triton, giou_triton
+    from ubteacher_tpu_torch.ops.kernels import focal_triton
 
     results = [nms_row(device, gen)]
 
@@ -467,26 +477,175 @@ def fcos_kernel_rows(device, gen):
         "library_ms": None,
     })
 
-    # --- GIoU ---
+    return results + giou_kernel_rows(device, gen)
+
+
+def giou_edge_sets(gen, device, n=4133):
+    """(name, pred, target, weight) rows of the edge sets of
+    tests/test_torch_giou.py, n rows each (not a multiple of the block):
+    random; pred equal to target in 1, 2 and 4 coordinates (ties); every
+    coordinate 0 and zero widths (ac == 0); half the weights 0; an inf, -inf
+    or NaN pred coordinate in every row, at weight 0 and half at weight > 0."""
+    import torch
+
+    def ltrb():
+        return torch.rand((n, 4), generator=gen, device=device) * 10.0 + 0.5
+
+    sets = []
+    for name in ("random", "tie1", "tie2", "tie4", "ac0", "ac0_width", "weight0", "nonfinite_w0", "nonfinite_w"):
+        p, t = ltrb(), ltrb()
+        w = torch.rand((n,), generator=gen, device=device)
+        if name.startswith("tie"):
+            order = torch.rand((n, 4), generator=gen, device=device).argsort(-1)
+            tie = torch.zeros((n, 4), dtype=torch.bool, device=device).scatter_(1, order[:, :int(name[3:])], True)
+            t = torch.where(tie, p, t)
+        elif name == "ac0":
+            p.zero_()
+            t.zero_()
+        elif name == "ac0_width":
+            p[:, [0, 2]] = 0.0
+            t[:, [0, 2]] = 0.0
+        elif name == "weight0":
+            w[::2] = 0.0
+        elif name.startswith("nonfinite"):
+            i = torch.arange(n, device=device)
+            bad = torch.tensor([math.inf, -math.inf, math.nan], device=device)[(i // 4) % 3]
+            p[i, i % 4] = bad
+            w[::2] = 0.0
+            if name == "nonfinite_w0":
+                w.zero_()
+        sets.append((name, p.contiguous(), t.contiguous(), w))
+    return sets
+
+
+def check_giou_grad(name, p, t, w, g) -> float:
+    """The backward kernel against giou_rows_grad_plain (NaN positions equal,
+    rtol 1e-5 / atol 1e-6) and against autograd of giou_rows_plain: equal
+    where both are finite, and NaN wherever autograd is NaN (the kernel, as
+    jax.grad, also gives NaN where autograd's masked_fill gives a minimum's
+    or maximum's losing side 0 against a NaN gradient). Two launches bitwise
+    equal. Returns the max abs error against the plain version."""
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import giou_cuda
+
+    got = giou_cuda.giou_rows_grad_kernel(p, t, w, g)
+    again = giou_cuda.giou_rows_grad_kernel(p, t, w, g)
+    ref = giou_cuda.giou_rows_grad_plain(p, t, w, g)
+    with torch.enable_grad():
+        leaf = p.detach().requires_grad_(True)
+        (auto,) = torch.autograd.grad(giou_cuda.giou_rows_plain(leaf, t, w), leaf, g)
+    torch.cuda.synchronize()
+    if not same_bytes(got, again):
+        raise AssertionError(f"giou_bwd {name}: two launches on the same inputs differ")
+    if not torch.equal(got.isnan(), ref.isnan()) or not torch.allclose(got, ref, rtol=1e-5, atol=1e-6, equal_nan=True):
+        raise AssertionError(f"giou_bwd {name}: max abs err {float((got - ref).abs().nan_to_num().max())} "
+                             f"against the plain version, NaN {int(got.isnan().sum())} vs {int(ref.isnan().sum())}")
+    both = ~got.isnan() & ~auto.isnan()
+    if (auto.isnan() & ~got.isnan()).any() or not torch.allclose(got[both], auto[both], rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"giou_bwd {name}: disagrees with autograd of the plain forward")
+    err = float((got - ref).abs().nan_to_num().max()) if got.numel() else 0.0
+    log(f"giou_bwd {name}: {p.shape[0]} rows, grad stride {g.stride(0)}, max abs err {err:.3g}, bitwise equal "
+        f"to plain {same_bytes(got, ref)}, NaN {int(got.isnan().sum())} (autograd {int(auto.isnan().sum())}), "
+        f"max abs err to autograd {float((got[both] - auto[both]).abs().max()) if both.any() else 0.0:.3g}")
+    return err
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time of one call of `fn`, launches queued on an idle device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def device_ms(fn, name: str) -> float:
+    """Device time per call of the kernels of `fn` whose name holds `name`."""
+    return sum(ms for key, ms in kernel_split_ms(fn).items() if name in key)
+
+
+def giou_kernel_rows(device, gen):
+    """The GIoU forward and backward kernels against their plain versions at
+    the FCOS step's GIOU_N rows and on the edge sets; back-to-back ms,
+    device ms (torch.profiler) and host ms per call."""
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import giou_cuda
+
+    for name, p, t, w in giou_edge_sets(gen, device):
+        rows = giou_cuda.giou_rows_kernel(p, t, w)
+        ref = giou_cuda.giou_rows_plain(p, t, w)
+        torch.cuda.synchronize()
+        if not torch.equal(rows.isnan(), ref.isnan()) or not torch.allclose(rows, ref, rtol=1e-5, atol=1e-6,
+                                                                            equal_nan=True):
+            raise AssertionError(f"giou_fwd {name}: max abs err {float((rows - ref).abs().nan_to_num().max())}")
+        if not same_bytes(rows, giou_cuda.giou_rows_kernel(p, t, w)):
+            raise AssertionError(f"giou_fwd {name}: two launches on the same inputs differ")
+        check_giou_grad(name, p, t, w, torch.rand((p.shape[0],), generator=gen, device=device))
+        check_giou_grad(name, p, t, w, torch.ones((), device=device).expand(p.shape[0]))
+    empty = torch.empty((0, 4), device=device)
+    before = dict(giou_cuda.LAUNCHES)
+    if (giou_cuda.giou_rows_kernel(empty, empty, empty[:, 0].contiguous()).shape != (0,)
+            or giou_cuda.giou_rows_grad_kernel(empty, empty, empty[:, 0].contiguous(),
+                                               empty[:, 0].contiguous()).shape != (0, 4)
+            or giou_cuda.LAUNCHES != before):
+        raise AssertionError("giou: 0 rows must give empty outputs and no launch")
+
+    # the FCOS step's rows: positives-like boxes, ctrness-like weights, and
+    # the upstream gradient as rows.sum() hands it back (stride 0)
     p = torch.rand((GIOU_N, 4), generator=gen, device=device) * 12.0 + 0.05
     q = torch.rand((GIOU_N, 4), generator=gen, device=device) * 12.0 + 0.05
     w = torch.rand((GIOU_N,), generator=gen, device=device)
-    rows = giou_triton.giou_rows_kernel(p, q, w)
-    rows_ref = giou_triton.giou_rows_plain(p, q, w)
+    g = torch.ones((), device=device).expand(GIOU_N)
+    rows = giou_cuda.giou_rows_kernel(p, q, w)
+    rows_ref = giou_cuda.giou_rows_plain(p, q, w)
     torch.cuda.synchronize()
     if not torch.allclose(rows, rows_ref, rtol=1e-5, atol=1e-6):
         raise AssertionError(f"giou_fwd: max abs err {float((rows - rows_ref).abs().max())}")
-    results.append({
-        "name": "giou_fwd", "route": "triton",
-        "source": "ubteacher_tpu_torch/ops/kernels/_giou_jit.py",
-        "replaces": "ubteacher_tpu/ops/pallas/giou_pallas.py:52",
-        "max_abs_err": float((rows - rows_ref).abs().max()),
-        "ms": median_ms(lambda: giou_triton.giou_rows_kernel(p, q, w)),
-        "plain_ms": median_ms(lambda: giou_triton.giou_rows_plain(p, q, w)),
-        **bound(nbytes(p, q, w, rows), 30 * p.shape[0], PEAK_F32),
-        "library_ms": None,
-    })
-    return results
+    if not same_bytes(rows, giou_cuda.giou_rows_kernel(p, q, w)):
+        raise AssertionError("giou_fwd: two launches on the same inputs differ")
+    bwd_err = check_giou_grad("FCOS shape", p, q, w, g)
+    dp = giou_cuda.giou_rows_grad_kernel(p, q, w, g)
+    assert_no_host_sync("giou_fwd", lambda: giou_cuda.giou_rows_kernel(p, q, w))
+    assert_no_host_sync("giou_bwd", lambda: giou_cuda.giou_rows_grad_kernel(p, q, w, g))
+
+    def autograd_bwd():
+        leaf = p.detach().requires_grad_(True)
+        with torch.enable_grad():
+            return torch.autograd.grad(giou_cuda.giou_rows_plain(leaf, q, w), leaf, g)
+
+    fwd = lambda: giou_cuda.giou_rows_kernel(p, q, w)  # noqa: E731
+    bwd = lambda: giou_cuda.giou_rows_grad_kernel(p, q, w, g)  # noqa: E731
+    out = []
+    for name, fn, plain, replaces, moved, ops in (
+        ("giou_fwd", fwd, lambda: giou_cuda.giou_rows_plain(p, q, w), 52, nbytes(p, q, w, rows), 30),
+        # the stride-0 gradient is one float read
+        ("giou_bwd", bwd, lambda: giou_cuda.giou_rows_grad_plain(p, q, w, g), 85, nbytes(p, q, w, dp) + 4, 70),
+    ):
+        row = {
+            "name": name, "route": "cuda", "source": "ubteacher_tpu_torch/csrc/giou.cu",
+            "replaces": f"ubteacher_tpu/ops/pallas/giou_pallas.py:{replaces}",
+            "max_abs_err": float((rows - rows_ref).abs().max()) if name == "giou_fwd" else bwd_err,
+            "ms": median_ms(fn), "device_ms": device_ms(fn, name), "host_ms": host_ms(fn),
+            "plain_ms": median_ms(plain),
+            **bound(moved, ops * GIOU_N, PEAK_F32),
+            "library_ms": None,
+        }
+        out.append(row)
+    log(f"giou_bwd: autograd of the plain forward (the Triton route's backward) "
+        f"{median_ms(autograd_bwd):.4f} ms back to back, device ms by kernel "
+        f"{sum(kernel_split_ms(autograd_bwd).values()):.4f}")
+    for r in out:
+        share = f"{100 * r['bound_ms'] / r['device_ms']:.0f}%" if r["device_ms"] > 0 else "not measured"
+        log(f"{r['name']}: back to back {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms "
+            f"(bound / device: {share}), host {r['host_ms']:.4f} ms a call")
+    return out
 
 
 def rcnn_anchors(canvas, device):
@@ -948,14 +1107,27 @@ def rcnn_kernel_rows(device, gen):
     if not torch.allclose(index_add().view(RCNN_STUDENT, length, 12),
                           row_scatter_cuda.scatter_rows_plain(g, rows, length), rtol=1e-6, atol=1e-5):
         raise AssertionError("row_scatter: the index_add_ yardstick computes another function")
+    def scatter():
+        return row_scatter_cuda.scatter_rows_kernel(g, rows, length)
+
+    # the shortest calls move most between runs: 5 rounds, kernel and
+    # library in turns, and the device time of each apart
+    rounds = [(median_ms(scatter), median_ms(index_add)) for _ in range(SCATTER_ROUNDS)]
+    kernel_ms, library_ms = (sorted(r[i] for r in rounds) for i in (0, 1))
+    split = device_ms(scatter, "scatter_rows")
+    library_split = sum(kernel_split_ms(index_add).values())
+    log(f"row_scatter: {SCATTER_ROUNDS} rounds back to back, kernel {[round(r[0], 4) for r in rounds]} ms "
+        f"(spread {kernel_ms[-1] - kernel_ms[0]:.4f}), index_add_ {[round(r[1], 4) for r in rounds]} ms "
+        f"(spread {library_ms[-1] - library_ms[0]:.4f}); device {split:.4f} ms, index_add_ device "
+        f"{library_split:.4f} ms (its zero fill included)")
     results.append({
         "name": "row_scatter", "route": "cuda", "source": "ubteacher_tpu_torch/csrc/row_scatter.cu",
         "replaces": "ubteacher_tpu/ops/pallas/row_gather_pallas.py:71",
         "max_abs_err": err,
-        "ms": median_ms(lambda: row_scatter_cuda.scatter_rows_kernel(g, rows, length)),
+        "ms": statistics.median(kernel_ms), "device_ms": split,
         "plain_ms": median_ms(lambda: row_scatter_cuda.scatter_rows_plain(g, rows, length)),
         **bound(nbytes(g, rows) + RCNN_STUDENT * length * 12 * 4, g.numel(), PEAK_F32),
-        "library_ms": median_ms(index_add),
+        "library_ms": statistics.median(library_ms),
     })
     return results
 
@@ -1145,6 +1317,7 @@ def kernel_phase(device):
     results = fcos_kernel_rows(device, gen) + rcnn_kernel_rows(device, gen) + stem_kernel_rows(device, gen)
     for r in results:
         extra = f" (float32 {r['ms_f32']:.4f} ms)" if "ms_f32" in r else ""
+        extra += f" (device {r['device_ms']:.4f} ms)" if "device_ms" in r else ""
         extra += f" (RPN shape {r['ms_rpn']:.4f} ms)" if "ms_rpn" in r else ""
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         log(f"kernel {r['name']}: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms{extra}{lib}, "
@@ -1703,12 +1876,14 @@ def rcnn_eval_slice_phase(device):
     return counts
 
 
-# --profile-rcnn: the rows printed, their names cut to fit a log line, and
-# the groups that sum the device rows by the first pattern their name holds
+# --profile-rcnn / --profile-fcos: the rows printed, their names cut to fit
+# a log line, and the groups that sum the device rows by the first pattern
+# their name holds
 PROFILE_ROWS, PROFILE_NAME_CHARS = 60, 140
 PROFILE_GROUPS = (
     ("ROIAlign backward", ("roi_align_backward",)), ("ROIAlign forward", ("roi_align_forward",)),
     ("NMS", ("nms_",)), ("matcher", ("match_",)), ("row scatter", ("scatter_rows",)),
+    ("GIoU", ("giou",)), ("focal", ("focal_",)),
     ("convolutions (cuDNN)", ("xmma", "cutlass", "cudnn", "nhwcAddPadding")), ("matmuls", ("nvjet", "gemm")),
     ("memcpy, memset", ("Memcpy", "Memset")), ("sorts", ("Sort", "sort")), ("reductions", ("reduce_kernel",)),
     ("upsample, max-pool", ("upsample", "max_pool")), ("copies and casts", ("copy",)),
@@ -1717,16 +1892,61 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_rcnn_step(device) -> None:
-    """torch.profiler over PROFILED_STEPS mutual steps of the full R-CNN slice
-    configuration, after the burn-in step, the boundary step and a few
-    unprofiled mutual steps (their host-clock wall times, median, are the
-    step wall): device time per step by kernel and copy, their sum (the
-    device's busy time), their sums by PROFILE_GROUPS and the largest
-    PROFILE_ROWS rows, printed."""
+def profile_step(label, steps, state, batch) -> None:
+    """torch.profiler over PROFILED_STEPS mutual steps, after the burn-in
+    step, the boundary step and WALL_STEPS unprofiled mutual steps (their
+    host-clock wall times, median, are the step wall): device time per step
+    by kernel and copy, their sum (the device's busy time), their sums by
+    PROFILE_GROUPS, the kernel launches per step (all of them, and the
+    port's own by its counters) and the largest PROFILE_ROWS rows, printed."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    burnin, mutual = steps
+    state, _ = burnin(state, batch)
+    walls = []
+    for _ in range(1 + WALL_STEPS):  # the boundary step, then the timed ones
+        t0 = time.perf_counter()
+        state, _ = mutual(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            state, _ = mutual(state, batch)
+        torch.cuda.synchronize()
+    ported = {k: v / PROFILED_STEPS for k, v in launch_counts().items() if v}
+    rows = []
+    for e in prof.key_averages():  # the device's own rows (kernels, copies): an op's row repeats its kernels
+        if e.device_type != DeviceType.CPU and e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total / PROFILED_STEPS / 1e3, e.count / PROFILED_STEPS, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    wall = statistics.median(walls[1:])
+    kernels = sum(calls for _, calls, name in rows if not name.startswith(("Memcpy", "Memset")))
+    lines = [f"{label}, {BATCH_LABEL}+{BATCH_UNLABEL} images at {CANVAS}: step wall {wall:.2f} ms "
+             f"(median of {WALL_STEPS} unprofiled steps {[round(w, 2) for w in walls[1:]]}); device busy {busy:.2f} ms "
+             f"per step over {PROFILED_STEPS} profiled steps ({100 * (1 - busy / wall):.1f}% idle against the wall)",
+             f"kernel launches per step {kernels:.0f} (memcpy and memset rows "
+             f"{sum(c for _, c, n in rows if n.startswith(('Memcpy', 'Memset'))):.0f}); the port's kernels per step {ported}"]
+    groups = {}
+    for ms, calls, name in rows:
+        group = next((g for g, pats in PROFILE_GROUPS if any(p in name for p in pats)), "other")
+        ms_sum, calls_sum = groups.get(group, (0.0, 0.0))
+        groups[group] = (ms_sum + ms, calls_sum + calls)
+    lines += [f"{ms:10.3f} ms {100 * ms / busy:5.1f}% {calls:7.0f} calls  {group}" for group, (ms, calls) in
+              sorted(groups.items(), key=lambda kv: -kv[1][0])]
+    lines += [f"{ms:10.3f} ms {calls:6.0f} calls  {name[:PROFILE_NAME_CHARS]}" for ms, calls, name in rows[:PROFILE_ROWS]]
+    for line in lines:
+        log(line)
+
+
+def profile_rcnn_step(device) -> None:
+    """profile_step over the full R-CNN slice configuration of phase 6."""
+    import torch
 
     from ubteacher_tpu_torch.engine.rcnn_trainer import make_rcnn_train_steps
 
@@ -1736,37 +1956,24 @@ def profile_rcnn_step(device) -> None:
                             torch.Generator(device=device).manual_seed(1), device,
                             num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES)
     batch["rng"] = torch.Generator(device=device).manual_seed(2)
-    burnin, mutual = make_rcnn_train_steps(cfg)
-    state, _ = burnin(state, batch)
-    walls = []
-    for _ in range(1 + WALL_STEPS):  # the boundary step, then the timed ones
-        t0 = time.perf_counter()
-        state, _ = mutual(state, batch)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_STEPS):
-            state, _ = mutual(state, batch)
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():  # the device's own rows (kernels, copies): an op's row repeats its kernels
-        if e.device_type != DeviceType.CPU and e.self_device_time_total > 0:
-            rows.append((e.self_device_time_total / PROFILED_STEPS / 1e3, e.count // PROFILED_STEPS, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    wall = statistics.median(walls[1:])
-    lines = [f"R-CNN mutual step, {BATCH_LABEL}+{BATCH_UNLABEL} images at {CANVAS}: step wall {wall:.2f} ms "
-             f"(median of {WALL_STEPS} unprofiled steps {[round(w, 2) for w in walls[1:]]}); device busy {busy:.2f} ms "
-             f"per step over {PROFILED_STEPS} profiled steps ({100 * (1 - busy / wall):.1f}% idle against the wall)"]
-    groups = {}
-    for ms, _, name in rows:
-        group = next((g for g, pats in PROFILE_GROUPS if any(p in name for p in pats)), "other")
-        groups[group] = groups.get(group, 0.0) + ms
-    lines += [f"{ms:10.3f} ms {100 * ms / busy:5.1f}%  {group}" for group, ms in
-              sorted(groups.items(), key=lambda kv: -kv[1])]
-    lines += [f"{ms:10.3f} ms {calls:6d} calls  {name[:PROFILE_NAME_CHARS]}" for ms, calls, name in rows[:PROFILE_ROWS]]
-    for line in lines:
-        log(line)
+    profile_step("R-CNN mutual step", make_rcnn_train_steps(cfg), state, batch)
+
+
+def profile_fcos_step(device) -> None:
+    """profile_step over the full FCOS slice configuration of phase 4."""
+    import torch
+
+    from ubteacher_tpu_torch.engine import make_fcos_train_steps
+
+    cfg = load_cfg(["SEMISUPNET.BURN_UP_STEP", "1"])
+    state = build_state(cfg, device, seed=0, cls_bias=SLICE_CLS_BIAS)
+    batch = synthetic_batch(cfg, BATCH_LABEL, BATCH_UNLABEL, CANVAS,
+                            torch.Generator(device=device).manual_seed(1), device)
+    batch["rng"] = torch.Generator(device=device).manual_seed(2)
+    profile_step("FCOS mutual step", make_fcos_train_steps(cfg), state, batch)
+
+
+PROFILES = {"--profile-rcnn": profile_rcnn_step, "--profile-fcos": profile_fcos_step}
 
 
 def main() -> int:
@@ -1783,8 +1990,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     build_kernels()
-    if sys.argv[1:] == ["--profile-rcnn"]:
-        profile_rcnn_step(device)
+    if len(sys.argv) == 2 and sys.argv[1] in PROFILES:
+        PROFILES[sys.argv[1]](device)
         log(name_power)
         return 0
     if sys.argv[1:]:

@@ -1,6 +1,6 @@
 """The port's box ops, losses and NMS against ubteacher_tpu's, on the CPU.
 
-The focal and GIoU losses here are the plain versions of the port's Triton
+The focal and GIoU losses here are the plain versions of the port's hand-written
 kernels, held against both the JAX package's jnp losses and its Pallas
 kernels in interpret mode (as tests/test_pallas_kernels.py runs them),
 forward and gradient, to rtol 1e-5. NMS must keep exactly the same set as
@@ -27,7 +27,7 @@ from ubteacher_tpu.ops.pallas import (
 )
 from ubteacher_tpu_torch.ops import boxes as TB
 from ubteacher_tpu_torch.ops import losses as TL
-from ubteacher_tpu_torch.ops.kernels import focal_triton, giou_triton, nms_cuda
+from ubteacher_tpu_torch.ops.kernels import focal_triton, giou_cuda, nms_cuda
 from ubteacher_tpu_torch.ops.nms import batched_nms_keep, nms_keep, top_k_detections
 
 
@@ -40,8 +40,22 @@ def _t(x):
 # --------------------------------------------------------------------------
 
 
+@pytest.fixture
+def one_torch_thread():
+    """torch on one CPU thread for the test, the caller's count restored
+    after. torch's first multi-threaded evaluation of the focal loss in a
+    fresh process on a loaded machine has computed one intra-op worker's
+    chunk of the elementwise ops up to 1.5e-4 off, beyond this test's
+    tolerance; single-threaded it never did (port_tools/focal_first_call.py).
+    The JAX side never moved."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("alpha,gamma", [(0.25, 2.0), (0.5, 1.5), (-1.0, 2.0)])
-def test_focal_matches_jax_and_pallas(alpha, gamma):
+def test_focal_matches_jax_and_pallas(alpha, gamma, one_torch_thread):
     rng = np.random.default_rng(1)
     x = (rng.normal(size=(256, 80)) * 3).astype(np.float32)
     t = (rng.random((256, 80)) < 0.05).astype(np.float32)
@@ -79,7 +93,7 @@ def test_giou_matches_jax_and_pallas():
     ref = JL.iou_loss(jnp.asarray(p), jnp.asarray(t), jnp.asarray(w), "giou")
     pal = giou_loss_pallas(jnp.asarray(p), jnp.asarray(t), jnp.asarray(w), True)
     pt = _t(p).requires_grad_(True)
-    got = giou_triton.giou_loss(pt, _t(t), _t(w))
+    got = giou_cuda.giou_loss(pt, _t(t), _t(w))
     for want in (ref, pal):
         np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
     got.backward()
@@ -254,13 +268,13 @@ def test_kernel_launchers_refuse_cpu_tensors():
     """On a CPU tensor the launchers raise; only the wrappers route CPU
     tensors to the plain versions, and no launch is counted."""
     x = torch.zeros((4, 80))
-    before = (dict(focal_triton.LAUNCHES), dict(giou_triton.LAUNCHES), dict(nms_cuda.LAUNCHES))
+    before = (dict(focal_triton.LAUNCHES), dict(giou_cuda.LAUNCHES), dict(nms_cuda.LAUNCHES))
     with pytest.raises(ValueError):
         focal_triton.focal_forward_kernel(x, x, 0.25, 2.0)
     with pytest.raises(ValueError):
-        giou_triton.giou_rows_kernel(torch.ones((4, 4)), torch.ones((4, 4)), torch.ones(4))
+        giou_cuda.giou_rows_kernel(torch.ones((4, 4)), torch.ones((4, 4)), torch.ones(4))
     with pytest.raises(ValueError):
         nms_cuda.nms_sorted_keep_kernel(torch.zeros((1, 4, 4)), torch.zeros(1, dtype=torch.int32), 0.5)
     focal_triton.sigmoid_focal_loss(x, x)
     nms_keep(torch.zeros((4, 4)), torch.zeros(4), torch.ones(4, dtype=torch.bool), 0.5)
-    assert (dict(focal_triton.LAUNCHES), dict(giou_triton.LAUNCHES), dict(nms_cuda.LAUNCHES)) == before
+    assert (dict(focal_triton.LAUNCHES), dict(giou_cuda.LAUNCHES), dict(nms_cuda.LAUNCHES)) == before

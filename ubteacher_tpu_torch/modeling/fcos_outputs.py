@@ -19,7 +19,7 @@ import torch
 from ..ops import boxes as box_ops
 from ..ops import losses as L
 from ..ops.kernels.focal_triton import sigmoid_focal_loss
-from ..ops.kernels.giou_triton import giou_loss
+from ..ops.kernels.giou_cuda import giou_loss
 from ..ops.nms import batched_nms_keep, top_k_detections
 from ..structures import Detections, PaddedInstances
 

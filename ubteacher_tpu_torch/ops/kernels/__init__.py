@@ -12,9 +12,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import focal_triton, giou_triton, matcher_cuda, nms_cuda, roi_align_cuda, row_scatter_cuda, stem_cuda
+from . import focal_triton, giou_cuda, matcher_cuda, nms_cuda, roi_align_cuda, row_scatter_cuda, stem_cuda
 
-_MODULES = (focal_triton, giou_triton, nms_cuda, matcher_cuda, roi_align_cuda, row_scatter_cuda, stem_cuda)
+_MODULES = (focal_triton, giou_cuda, nms_cuda, matcher_cuda, roi_align_cuda, row_scatter_cuda, stem_cuda)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -20,7 +20,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-SOURCES = ("nms", "matcher", "roi_align", "row_scatter", "stem")
+SOURCES = ("nms", "matcher", "roi_align", "row_scatter", "stem", "giou")
 
 
 def nvcc() -> str:

@@ -3,7 +3,7 @@
 Every loss takes full-size inputs plus a weight/mask tensor and computes
 masked sums, so no positive-index gathering happens anywhere. The focal and
 IoU-family losses here are the plain versions of the hand-written kernels in
-`ops/kernels/` (focal_triton, giou_triton): the kernel wrappers use them for
+`ops/kernels/` (focal_triton, giou_cuda): the kernel wrappers use them for
 CPU tensors and `chip_smoke.py` holds the kernels against them on the card.
 """
 
@@ -100,6 +100,61 @@ def iou_loss_rows(
         safe_ac = torch.where(ac_union == 0, torch.ones_like(ac_union), ac_union)
         return 1.0 - (ious - (ac_union - union) / safe_ac)
     raise NotImplementedError(loss_type)
+
+
+def giou_loss_grad(
+    pred_ltrb: torch.Tensor,
+    target_ltrb: torch.Tensor,
+    weight: torch.Tensor,
+    grad_rows: torch.Tensor,
+) -> torch.Tensor:
+    """Analytic d(iou_loss_rows(pred, target, "giou") * weight)/d(pred) *
+    grad_rows, (N, 4) -> (N, 4), as jax.grad gives it for the JAX package's
+    formula (the plain version of the GIoU backward kernel, csrc/giou.cu).
+    minimum/maximum pass on the upstream gradient times 1 to the winning
+    side, 1/2 to each side of a tie and 0 to the losing side or where an
+    operand is NaN, multiplied, so that 0 x inf or NaN is NaN (JAX's rule;
+    torch's masked_fill gives 0 there). The ac == 0 guard passes gradient to
+    ac only where ac != 0. No row is skipped: a non-finite pred gives NaN
+    where jax.grad does, weight 0 or not."""
+    tl, tt, tr, tb = target_ltrb.unbind(-1)
+    pl, pt, pr, pb = pred_ltrb.unbind(-1)
+    target_area = (tl + tr) * (tt + tb)
+    s_w, s_h = pl + pr, pt + pb
+    w_inter = torch.minimum(pl, tl) + torch.minimum(pr, tr)
+    h_inter = torch.minimum(pb, tb) + torch.minimum(pt, tt)
+    g_w = torch.maximum(pl, tl) + torch.maximum(pr, tr)
+    g_h = torch.maximum(pb, tb) + torch.maximum(pt, tt)
+    ac_union = g_w * g_h
+    inter = w_inter * h_inter
+    union = target_area + s_w * s_h - inter
+    num, den = inter + 1.0, union + 1.0
+    safe_ac = torch.where(ac_union == 0, torch.ones_like(ac_union), ac_union)
+    d = ac_union - union
+
+    # rows = (1 - (num / den - d / safe_ac)) * weight
+    grad_loss = grad_rows * weight
+    grad_ious = -grad_loss
+    grad_d = grad_loss / safe_ac
+    grad_safe = -grad_loss * ((d / safe_ac) / safe_ac)
+    grad_ac = grad_d + torch.where(ac_union == 0, torch.zeros_like(grad_safe), grad_safe)
+    grad_union = -grad_d + -grad_ious * ((num / den) / den)
+    grad_inter = grad_ious / den + -grad_union
+    grad_w_inter, grad_h_inter = grad_inter * h_inter, grad_inter * w_inter
+    grad_g_w, grad_g_h = grad_ac * g_h, grad_ac * g_w
+    grad_s_w, grad_s_h = grad_union * s_h, grad_union * s_w
+
+    def share(g, a, b, wins):
+        return g * torch.where(a == b, 0.5, wins.to(g.dtype))
+
+    # each coordinate sums its uses as autograd does: enclosing box,
+    # intersection, then pred_area
+    return torch.stack([
+        share(grad_g_w, pl, tl, pl > tl) + share(grad_w_inter, pl, tl, pl < tl) + grad_s_w,
+        share(grad_g_h, pt, tt, pt > tt) + share(grad_h_inter, pt, tt, pt < tt) + grad_s_h,
+        share(grad_g_w, pr, tr, pr > tr) + share(grad_w_inter, pr, tr, pr < tr) + grad_s_w,
+        share(grad_g_h, pb, tb, pb > tb) + share(grad_h_inter, pb, tb, pb < tb) + grad_s_h,
+    ], -1)
 
 
 def iou_loss(
