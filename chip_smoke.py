@@ -83,8 +83,25 @@
    make_rcnn_inference_fn and make_rcnn_proposal_fn: AP and proposal AR
    fields, exact launch counts.
 
+10. FCOS train loop: UBTeacherTrainer(...).train() on the card through the
+   trainer's entry points at the recipe's full width (R-50, 80 classes,
+   canvases 768x1344 / 1344x768 and the recipe's 1024x1344 buckets,
+   MIN_SIZE_TRAIN (400, 1200) range, 8 + 8 images), fed by the two-stream
+   loader (8 threads) from 48 + 48 seeded in-memory images (landscape
+   480x640 and portrait 640x427, up to 12 boxes each, crowd boxes among
+   them) and evaluated on 16 more: 6 iterations (burn-in 2, checkpoints at
+   3 and 6, eval of teacher and student at 6), then a second trainer
+   resumed from the checkpoint, which must hold the saved state bitwise,
+   for 2 more iterations. Losses finite, the EMA rate at the boundary, the
+   eval's AP fields, and in the resumed run no synchronizing call of the
+   port's code (torch's sync debug mode) but the metrics fetch, once an
+   iteration; the loader's host ms per batch alone, each iteration's time
+   and data_time, peak memory.
+11. Faster R-CNN train loop: the same for UBRCNNTeacherTrainer, 4 iterations
+   (burn-in 1, checkpoints at 2 and 4, eval at 4) and 2 resumed.
+
 The kernels' launch counts in the JSON line are the sums over the slice
-phases (4, 6, 8, 9).
+phases (4, 6, 8, 9) and the train loops (10, 11).
 
 With --profile-rcnn (--profile-fcos) only the setup runs, then the slice
 configuration of phase 6 (phase 4) for one burn-in step, the boundary step
@@ -99,6 +116,7 @@ any failure or when no CUDA device is present.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -107,6 +125,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "configs", "FCOS", "coco-standard", "fcos_R_50_ut2_sup1_run0.yaml")
@@ -167,6 +186,18 @@ FCOS_SMALL_OPTS = [
     "TPU.NMS_CANDIDATES", "50", "SEMISUPNET.BURN_UP_STEP", "0",
 ]
 EVAL_SUMMARY = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100")
+
+# the train-loop phases: 48 labeled + 48 unlabeled seeded images, half
+# landscape 480x640 and half portrait 640x427, and 16 test images; per
+# recipe (iterations, burn-in, checkpoint period, eval period), then a resume
+# with MAX_ITER raised by RESUME_STEPS
+LOOP_IMAGES = ((24, (480, 640)), (24, (640, 427)), (24, (480, 640)), (24, (640, 427)),
+               (12, (480, 640)), (4, (640, 427)))
+LOOP_RUNS = {"fcos": (6, 2, 3, 6), "rcnn": (4, 1, 2, 4)}
+RESUME_STEPS = 2
+LOADER_BATCHES = 6  # timed batches of the loader alone, after one untimed
+# the slice phases' mutual step times (ms), for the loop phases' log
+SLICE_STEP_MS = {}
 
 
 def log(*args) -> None:
@@ -1433,6 +1464,7 @@ def run_slice(name, state, steps, batch, burn_up, device):
     torch.cuda.synchronize()
     reset_launch_counts()
     history = []
+    SLICE_STEP_MS[name] = []
     for i in range(1 + MUTUAL_STEPS):
         t0 = time.perf_counter()
         step = burnin if state.step < burn_up else mutual
@@ -1441,6 +1473,8 @@ def run_slice(name, state, steps, batch, burn_up, device):
         ms = (time.perf_counter() - t0) * 1e3
         m = {k: float(v) for k, v in metrics.items()}
         history.append((step is mutual, m))
+        if step is mutual:
+            SLICE_STEP_MS[name].append(ms)
         log(f"{name} step {i} ({'mutual' if step is mutual else 'burn-in'}) {ms:.1f} ms: "
             + ", ".join(f"{k}={v:.6g}" for k, v in m.items()))
     counts = launch_counts()
@@ -1876,6 +1910,205 @@ def rcnn_eval_slice_phase(device):
     return counts
 
 
+# --------------------------------------------------------------------------
+# the train loops: UBTeacherTrainer / UBRCNNTeacherTrainer.train() on the card
+# --------------------------------------------------------------------------
+
+
+def time_loader(loader) -> float:
+    """The loader alone: host ms per batch over LOADER_BATCHES batches after
+    one untimed batch (its prefetch thread and pool at TPU.DATA_THREADS)."""
+    it = iter(loader)
+    try:
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            next(it)
+        return (time.perf_counter() - t0) * 1e3 / LOADER_BATCHES
+    finally:
+        it.close()
+        loader.close()
+
+
+def read_lines(output_dir):
+    with open(os.path.join(output_dir, "metrics.json")) as f:
+        return [json.loads(line) for line in f]
+
+
+def same_state(a, b) -> list:
+    """Names of the tensors (both models, the momentum buffers) and scalars
+    (step, update count, generator state) that differ between two
+    checkpoint_state() dicts."""
+    import torch
+
+    bad = [f"{part}.{k}" for part in ("student", "teacher")
+           for k, v in a[part].items() if not torch.equal(v, b[part][k])]
+    sa, sb = a["optimizer"]["sgd"]["state"], b["optimizer"]["sgd"]["state"]
+    if set(sa) != set(sb) or not sa:
+        bad.append("optimizer state keys")
+    bad += [f"momentum {k}" for k in sa if k in sb
+            and not torch.equal(sa[k]["momentum_buffer"], sb[k]["momentum_buffer"])]
+    bad += [k for k in ("step",) if a[k] != b[k]]
+    if a["optimizer"]["count"] != b["optimizer"]["count"]:
+        bad.append("optimizer count")
+    if not torch.equal(a["generator"], b["generator"]):
+        bad.append("generator")
+    return bad
+
+
+def train_loop_phase(device, name, trainer_cls, cfg_path, set_bias, kernels):
+    """The training run through the trainer's entry points at the recipe's
+    full width, then a resumed run of RESUME_STEPS more iterations; returns
+    the kernels' launch counts over both runs (each reset just before its
+    train() and read just after)."""
+    import shutil
+
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    max_iter, burn_up, ckpt_period, eval_period = LOOP_RUNS[name]
+    out_dir = os.path.join(ROOT, "ubteacher_tpu_torch", "_build", "chip_smoke_runs", name)
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def cfg_for(iters):
+        return load_cfg(["SOLVER.IMG_PER_BATCH_LABEL", str(BATCH_LABEL), "SOLVER.IMG_PER_BATCH_UNLABEL",
+                         str(BATCH_UNLABEL), "SOLVER.MAX_ITER", str(iters), "SEMISUPNET.BURN_UP_STEP", str(burn_up),
+                         "SOLVER.CHECKPOINT_PERIOD", str(ckpt_period), "TEST.EVAL_PERIOD", str(eval_period),
+                         "TPU.DATA_THREADS", "8", "MODEL.WEIGHTS", "", "OUTPUT_DIR", out_dir], cfg_path)
+
+    cfg = cfg_for(max_iter)
+    num_classes = cfg.MODEL.FCOS.NUM_CLASSES if name == "fcos" else cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    dicts, image_loader = eval_dataset(LOOP_IMAGES, num_classes, seed=3)
+    n_label, n_unlabel = (sum(n for n, _ in LOOP_IMAGES[k:k + 2]) for k in (0, 2))
+    datasets = {"train": dicts[:n_label], "train_unlabel": dicts[n_label:n_label + n_unlabel],
+                "test": dicts[n_label + n_unlabel:], "meta": {}}
+
+    def trainer(c):
+        t = trainer_cls(c, datasets=datasets, image_loader=image_loader, device=device)
+        t.storage.log_period = 1
+        return t
+
+    t1 = trainer(cfg)
+    log(f"{name} train loop: R-{cfg.MODEL.RESNETS.DEPTH}, {num_classes} classes, canvases "
+        f"{tuple(cfg.TPU.CANVAS_LANDSCAPE)} / {tuple(cfg.TPU.CANVAS_PORTRAIT)} + {list(cfg.TPU.EXTRA_TRAIN_CANVASES)}, "
+        f"MIN_SIZE_TRAIN {tuple(cfg.INPUT.MIN_SIZE_TRAIN)} {cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING}, "
+        f"{cfg.SOLVER.IMG_PER_BATCH_LABEL}+{cfg.SOLVER.IMG_PER_BATCH_UNLABEL} images, {max_iter} iterations "
+        f"(burn-in {burn_up}), {cfg.TPU.DATA_THREADS} data threads")
+    loader_ms = time_loader(t1.loader)
+    log(f"{name} train loop: the loader alone, {loader_ms:.1f} host ms per batch at {cfg.TPU.DATA_THREADS} threads")
+    set_bias(t1.state.student)
+    t1.resume_or_load(resume=False)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    t1.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    lines = read_lines(out_dir)
+    steps = [m for m in lines if "total_loss" in m]
+    for m in steps:
+        log(f"{name} train loop iteration {m['iteration']}: time {m['time'] * 1e3:.1f} ms, data_time "
+            f"{m['data_time'] * 1e3:.1f} ms, total_loss {m['total_loss']:.6g}, "
+            + ", ".join(f"{k}={v:.6g}" for k, v in m.items() if k.startswith("num_")))
+    mutual_ms = [m["time"] * 1e3 for m in steps[burn_up:]]
+    log(f"{name} train loop: {len(steps)} iterations + checkpoints + eval in {seconds:.1f} s; launches {counts}; "
+        f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB); median mutual iteration {statistics.median(mutual_ms):.1f} "
+        f"ms (slice phase's median mutual step {statistics.median(SLICE_STEP_MS[name]):.1f} ms); median data_time "
+        f"{statistics.median(m['data_time'] for m in steps) * 1e3:.1f} ms")
+
+    if len(steps) != max_iter:
+        raise AssertionError(f"{name} train loop: {len(steps)} metrics lines, expected {max_iter}")
+    bad = [(m["iteration"], k) for m in steps for k, v in m.items()
+           if (k.startswith("loss") or k == "total_loss") and not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{name} train loop: non-finite losses {bad}")
+    check_ema(f"{name} train loop", cfg, steps[burn_up:])
+    evals = {k: v for m in lines for k, v in m.items() if k.endswith("/AP")}
+    log(f"{name} train loop eval: " + ", ".join(f"{k}={v:.6g}" for k, v in evals.items()))
+    if set(evals) != {"teacher/AP", "student/AP"} or not all(math.isfinite(v) for v in evals.values()):
+        raise AssertionError(f"{name} train loop: the eval gave {evals}")
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{name} train loop: kernels not launched: {missing}")
+    if t1.checkpointer.latest_step() != max_iter:
+        raise AssertionError(f"{name} train loop: checkpoints {t1.checkpointer.steps()}")
+
+    # resume: the saved state bitwise, then RESUME_STEPS more iterations
+    t2 = trainer(cfg_for(max_iter + RESUME_STEPS))
+    t2.resume_or_load(resume=True)
+    bad = same_state(t2.checkpoint_state(), t1.checkpoint_state())
+    if t2.start_iter != max_iter or bad:
+        raise AssertionError(f"{name} train loop: resume at {t2.start_iter}, differing {bad[:8]}")
+    log(f"{name} train loop: resumed at iteration {t2.start_iter}, every parameter, momentum buffer, the step, "
+        "the update count and the generator state bitwise equal to the saved run's")
+    del t1
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    # where the resumed run waits for the device: torch's sync debug mode
+    # warns at every synchronizing call, counted here by its Python site
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t2.train()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = collections.Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    log(f"{name} train loop: synchronizing calls by site over the resumed run ({RESUME_STEPS} iterations, "
+        f"one checkpoint): {dict(sites)}")
+    # the port's only wait for the device is the metrics fetch, once an
+    # iteration; the checkpoint's copies sit in torch's own files
+    port_sites = {k: v for k, v in sites.items() if k.startswith("ubteacher_tpu_torch/")}
+    if len(port_sites) != 1 or not all(k.startswith("ubteacher_tpu_torch/engine/trainer.py") and v == RESUME_STEPS
+                                       for k, v in port_sites.items()):
+        raise AssertionError(f"{name} train loop: the port waits for the device at {port_sites}, "
+                             f"expected the metrics fetch once an iteration")
+    for k, v in launch_counts().items():
+        counts[k] += v
+    more = [m for m in read_lines(out_dir)[len(lines):] if "total_loss" in m]
+    if t2.state.step != max_iter + RESUME_STEPS or len(more) != RESUME_STEPS:
+        raise AssertionError(f"{name} train loop: the resumed run took {len(more)} steps to {t2.state.step}")
+    bad = [k for m in more for k, v in m.items() if k.startswith("loss") and not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{name} train loop: the resumed run's losses {bad} are not finite")
+    log(f"{name} train loop: the resumed run took iterations {max_iter + 1}..{max_iter + RESUME_STEPS}, times "
+        + ", ".join(f"{m['time'] * 1e3:.1f}" for m in more) + " ms")
+    del t2
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return counts
+
+
+def fcos_loop_phase(device):
+    import torch
+
+    def bias(model):
+        with torch.no_grad():
+            model.head.cls_logits.bias.fill_(SLICE_CLS_BIAS)
+
+    from ubteacher_tpu_torch.engine.trainer import UBTeacherTrainer
+
+    return train_loop_phase(device, "fcos", UBTeacherTrainer, CFG, bias, FCOS_KERNELS)
+
+
+def rcnn_loop_phase(device):
+    import torch
+
+    def bias(model):
+        with torch.no_grad():
+            model.box_predictor.cls_score.bias[0] = RCNN_SLICE_CLS_BIAS
+
+    from ubteacher_tpu_torch.engine.trainer import UBRCNNTeacherTrainer
+
+    return train_loop_phase(device, "rcnn", UBRCNNTeacherTrainer, RCNN_CFG, bias, tuple(RCNN_EXPECTED))
+
+
 # --profile-rcnn / --profile-fcos: the rows printed, their names cut to fit
 # a log line, and the groups that sum the device rows by the first pattern
 # their name holds
@@ -2002,7 +2235,8 @@ def main() -> int:
     phases = (("kernel", kernel_phase), ("fcos reference", reference_phase), ("fcos slice", slice_phase),
               ("rcnn reference", rcnn_reference_phase), ("rcnn slice", rcnn_slice_phase),
               ("eval reference", eval_reference_phase), ("fcos eval slice", fcos_eval_slice_phase),
-              ("rcnn eval slice", rcnn_eval_slice_phase))
+              ("rcnn eval slice", rcnn_eval_slice_phase), ("fcos train loop", fcos_loop_phase),
+              ("rcnn train loop", rcnn_loop_phase))
     for name, phase in phases:
         t0 = time.perf_counter()
         out = phase(device)

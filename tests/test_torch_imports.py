@@ -1,5 +1,6 @@
 """The port imports torch and never jax, flax, optax or ubteacher_tpu; nor
-cv2, which only the test loader's default image reader imports, at its call."""
+cv2, which only the loaders' default image reader and the training
+visualization import, at their call."""
 
 import subprocess
 import sys
@@ -7,12 +8,15 @@ import sys
 MODULES = [
     "ubteacher_tpu_torch",
     "ubteacher_tpu_torch.checkpoint",
+    "ubteacher_tpu_torch.checkpoint.checkpointer",
+    "ubteacher_tpu_torch.checkpoint.torch_weights",
     "ubteacher_tpu_torch.config",
     "ubteacher_tpu_torch.data.augment",
     "ubteacher_tpu_torch.data.coco",
     "ubteacher_tpu_torch.data.loader",
     "ubteacher_tpu_torch.engine",
     "ubteacher_tpu_torch.engine.rcnn_trainer",
+    "ubteacher_tpu_torch.engine.trainer",
     "ubteacher_tpu_torch.evaluation",
     "ubteacher_tpu_torch.evaluation.coco_eval",
     "ubteacher_tpu_torch.evaluation.evaluator",
@@ -34,6 +38,9 @@ MODULES = [
     "ubteacher_tpu_torch.ops.stem",
     "ubteacher_tpu_torch.solver",
     "ubteacher_tpu_torch.structures",
+    "ubteacher_tpu_torch.train_net",
+    "ubteacher_tpu_torch.utils.events",
+    "ubteacher_tpu_torch.utils.visualizer",
 ]
 
 

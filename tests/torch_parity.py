@@ -13,6 +13,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 import yaml
 
@@ -436,3 +437,137 @@ def compare_rcnn_metrics(port, ref):
     """Every JAX metric (the port adds sample counts of its own)."""
     for k, v in ref.items():
         np.testing.assert_allclose(port[k], v, rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+# --------------------------------------------------------------------------
+# Trainers: both packages' training runs on one synthetic COCO set
+# --------------------------------------------------------------------------
+
+# the tiny run of tests/test_e2e.py (_tiny_cfg): R-18, float32, 3 classes,
+# batches of 2 + 2, burn-in 2 of 4 iterations, square canvases
+TRAINER_OPTS = [
+    "MODEL.RESNETS.DEPTH", "18",
+    "TPU.COMPUTE_DTYPE", "float32",
+    "TPU.MAX_GT", "8",
+    "TPU.MAX_PSEUDO", "50",
+    "TPU.NMS_CANDIDATES", "100",
+    "TPU.DATA_THREADS", "2",
+    # the JAX trainer on one of the 8 virtual CPU devices: a batch of 2
+    # would run replicated on all of them
+    "TPU.MESH_DATA", "1",
+    "INPUT.MIN_SIZE_TRAIN_SAMPLING", "choice",
+    "SOLVER.IMG_PER_BATCH_LABEL", "2",
+    "SOLVER.IMG_PER_BATCH_UNLABEL", "2",
+    "SOLVER.MAX_ITER", "4",
+    "SOLVER.BASE_LR", "0.002",
+    "SOLVER.WARMUP_ITERS", "10",
+    "SOLVER.CHECKPOINT_PERIOD", "1000",
+    "SEMISUPNET.BURN_UP_STEP", "2",
+    "TEST.EVAL_PERIOD", "0",
+    "MODEL.WEIGHTS", "",
+]
+# Faster R-CNN on top: the small sizes of tests/test_e2e.py's R-CNN run
+TRAINER_RCNN_OPTS = [
+    "MODEL.ROI_HEADS.NUM_CLASSES", "3",
+    "MODEL.RPN.POST_NMS_TOPK_TRAIN", "64",
+    "MODEL.RPN.POST_NMS_TOPK_TEST", "64",
+    "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "64",
+    "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "32",
+    "TEST.DETECTIONS_PER_IMAGE", "20",
+]
+
+
+def canvas_opts(canvas, min_size):
+    c = f"({canvas}, {canvas})"
+    return ["TPU.CANVAS_LANDSCAPE", c, "TPU.CANVAS_PORTRAIT", c, "TPU.TEST_CANVAS", c,
+            "INPUT.MIN_SIZE_TRAIN", f"({min_size},)", "INPUT.MAX_SIZE_TRAIN", str(canvas),
+            "INPUT.MIN_SIZE_TEST", str(min_size), "INPUT.MAX_SIZE_TEST", str(canvas)]
+
+
+def trainer_cfgs(output_dir, rcnn=False, extra_opts=()):
+    """(JAX cfg, port cfg) of the tiny trainer run, FCOS or Faster R-CNN."""
+    from ubteacher_tpu.config import add_ubteacher_config, get_cfg
+    from ubteacher_tpu_torch.config import add_ubteacher_config as t_add, get_cfg as t_get
+
+    if rcnn:
+        opts = TRAINER_OPTS + TRAINER_RCNN_OPTS + canvas_opts(64, 48)
+    else:
+        opts = TRAINER_OPTS + ["MODEL.FCOS.NUM_CLASSES", "3"] + canvas_opts(128, 96)
+    out = []
+    for get, add, sub in ((get_cfg, add_ubteacher_config, "jax"), (t_get, t_add, "torch")):
+        cfg = get()
+        add(cfg)
+        cfg.merge_from_file(RCNN_CFG_PATH if rcnn else CFG_PATH)
+        cfg.merge_from_list(opts + list(extra_opts) + ["OUTPUT_DIR", os.path.join(str(output_dir), sub)])
+        cfg.freeze()
+        out.append(cfg)
+    return tuple(out)
+
+
+def synthetic_coco(n_images=8, size=96, seed=0):
+    """Dataset dicts (xyxy boxes, 3 classes, one crowd box) of colored
+    rectangles on noise, and an in-memory reader of their uint8 BGR
+    images."""
+    rng = np.random.default_rng(seed)
+    dicts, arrays = [], {}
+    for i in range(n_images):
+        img = rng.integers(0, 80, size=(size, size, 3), dtype=np.uint8)
+        annos = []
+        for j in range(int(rng.integers(1, 4))):
+            w, h = int(rng.integers(size // 5, size // 2)), int(rng.integers(size // 5, size // 2))
+            x, y = int(rng.integers(0, size - w)), int(rng.integers(0, size - h))
+            cat = int(rng.integers(0, 3))
+            img[y:y + h, x:x + w] = (60 + 60 * cat, 40 * cat, 255 - 50 * cat)
+            annos.append({"bbox": [x, y, x + w, y + h], "category_id": cat, "area": w * h,
+                          "iscrowd": int(i == 3 and j == 0)})
+        name = f"synthetic/{i}.png"
+        arrays[name] = img
+        dicts.append({"file_name": name, "image_id": i, "height": size, "width": size, "annotations": annos})
+    return dicts, arrays.__getitem__
+
+
+def trainer_datasets(dicts):
+    return {"train": dicts[:6], "train_unlabel": dicts[6:], "test": dicts[:4],
+            "meta": {"thing_classes": ["a", "b", "c"]}}
+
+
+class JaxKeyDraws:
+    """The port trainer's loader, each batch carrying the draws the JAX
+    trainer's key for that batch makes (PRNGKey(SEED + 17), split once per
+    batch): `draws(i, key, batch)` returns the batch keys to add."""
+
+    def __init__(self, loader, draws, seed=0):
+        self.loader, self.draws, self.seed = loader, draws, seed
+
+    def __iter__(self):
+        key = jax.random.PRNGKey(self.seed + 17)
+        for i, batch in enumerate(self.loader):
+            key, sub = jax.random.split(key)
+            batch.update(self.draws(i, sub, batch))
+            yield batch
+
+    def close(self):
+        self.loader.close()
+
+
+def read_metrics(output_dir):
+    import json
+
+    with open(os.path.join(output_dir, "metrics.json")) as f:
+        return [json.loads(line) for line in f]
+
+
+# torch's intra-op threads while a module's trainer runs: one per core is
+# the default, and the suite's parallel workers, each with as many, then
+# oversubscribe the CPU many times over (a 4 s run took 329 s so)
+TEST_TORCH_THREADS = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """Autouse in the modules that import it: TEST_TORCH_THREADS intra-op
+    threads, the count restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(TEST_TORCH_THREADS)
+    yield
+    torch.set_num_threads(before)

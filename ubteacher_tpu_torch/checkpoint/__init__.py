@@ -1,3 +1,4 @@
+from .checkpointer import TSCheckpointer
 from .jax_params import params_from_jax
 
-__all__ = ["params_from_jax"]
+__all__ = ["TSCheckpointer", "params_from_jax"]

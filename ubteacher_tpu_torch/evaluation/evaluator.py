@@ -29,11 +29,13 @@ from ..modeling.fcos_outputs import (
 from .coco_eval import COCOBboxEvaluator
 
 
-def make_fcos_inference_fn(cfg, nms_method: str | None = None) -> Callable:
+def make_fcos_inference_fn(cfg, nms_method: str | None = None, train: bool = False) -> Callable:
     """Returns infer(model, images (B, H, W, 3), hw (B, 2)) -> Detections at
-    the test thresholds (INFERENCE_TH_TEST, *_TOPK_TEST), NMS criterion
-    `nms_method` or NMS_CRITERIA_TEST; the model runs under the bf16
-    autocast of the train steps when TPU.COMPUTE_DTYPE is "bfloat16"."""
+    the test thresholds (INFERENCE_TH_TEST, *_TOPK_TEST), or with `train` at
+    the train-time ones the teacher's pseudo-label decode uses (the training
+    visualization's); NMS criterion `nms_method` or NMS_CRITERIA_TEST. The
+    model runs under the bf16 autocast of the train steps when
+    TPU.COMPUTE_DTYPE is "bfloat16"."""
     fcfg = fcos_loss_config(cfg)
     strides = list(cfg.MODEL.FCOS.FPN_STRIDES)
     f = cfg.MODEL.FCOS
@@ -50,9 +52,9 @@ def make_fcos_inference_fn(cfg, nms_method: str | None = None) -> Callable:
         return fcos_decode(
             dense, grid, lengths, hw, fcfg,
             nms_method=method,
-            pre_nms_thresh=f.INFERENCE_TH_TEST,
-            pre_nms_topk=f.PRE_NMS_TOPK_TEST,
-            post_nms_topk=f.POST_NMS_TOPK_TEST,
+            pre_nms_thresh=f.INFERENCE_TH_TRAIN if train else f.INFERENCE_TH_TEST,
+            pre_nms_topk=f.PRE_NMS_TOPK_TRAIN if train else f.PRE_NMS_TOPK_TEST,
+            post_nms_topk=f.POST_NMS_TOPK_TRAIN if train else f.POST_NMS_TOPK_TEST,
             nms_thresh=f.NMS_TH,
             total_candidates=cfg.TPU.NMS_CANDIDATES,
         )

@@ -85,9 +85,11 @@ def generate_anchors(
         tuple(tuple(float(v) for v in s) for s in sizes),
         tuple(tuple(float(v) for v in a) for a in aspect_ratios), float(offset),
     )
+    # non_blocking: a blocking copy from pageable memory waits for the
+    # device; the cached arrays outlive the copy
     return {
-        "anchors": torch.from_numpy(anchors).to(device),
+        "anchors": torch.from_numpy(anchors).to(device, non_blocking=True),
         "level_lengths": list(lengths),
-        "level_ids": torch.from_numpy(lids).to(device),
-        "cell_origins": torch.from_numpy(origins).to(device),
+        "level_ids": torch.from_numpy(lids).to(device, non_blocking=True),
+        "cell_origins": torch.from_numpy(origins).to(device, non_blocking=True),
     }

@@ -59,7 +59,10 @@ def compute_locations(
         locs.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1))
         n = fh * fw
         strs.append(torch.full((n,), float(stride), device=device))
-        ranges.append(torch.tensor(soi[lvl], device=device).expand(n, 2))
+        # filled on the device: a tensor copied from pageable host memory
+        # would make the host wait for the device
+        lo, hi = (torch.full((n,), float(v), device=device) for v in soi[lvl])
+        ranges.append(torch.stack([lo, hi], -1))
         lids.append(torch.full((n,), lvl, dtype=torch.int32, device=device))
     return {
         "locations": torch.cat(locs, 0),

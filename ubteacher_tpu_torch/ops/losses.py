@@ -234,8 +234,8 @@ def nl_loss(
 
 def compute_ctrness_targets(reg_targets: torch.Tensor) -> torch.Tensor:
     """sqrt((min_lr / max_lr) * (min_tb / max_tb)); (..., 4) -> (...)."""
-    lr = reg_targets[..., [0, 2]]
-    tb = reg_targets[..., [1, 3]]
+    lr = reg_targets[..., 0::2]  # slices: an index list is copied to the device
+    tb = reg_targets[..., 1::2]
     ctr = (lr.amin(-1) / torch.clamp(lr.amax(-1), min=1e-12)) * (
         tb.amin(-1) / torch.clamp(tb.amax(-1), min=1e-12)
     )

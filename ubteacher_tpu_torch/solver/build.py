@@ -132,6 +132,14 @@ class Optimizer:
         self.sgd.step()
         self.count += 1
 
+    def state_dict(self) -> Dict:
+        """SGD's state (the momentum buffers) and the update count."""
+        return {"sgd": self.sgd.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.sgd.load_state_dict(state["sgd"])
+        self.count = int(state["count"])
+
 
 def build_optimizer(cfg, model: nn.Module) -> Optimizer:
     """Freeze per MODEL.BACKBONE.FREEZE_AT, then SGD over what trains."""
