@@ -4,6 +4,9 @@
     python3 chip_smoke.py                  # the whole run below
     python3 chip_smoke.py --profile-rcnn   # the R-CNN mutual step under torch.profiler
     python3 chip_smoke.py --profile-fcos   # the FCOS mutual step under torch.profiler
+    python3 chip_smoke.py --lift           # the FCOS lift (phase 12) and the R-CNN ablation
+    python3 chip_smoke.py --ab-stem        # TPU.STEM_MODE conv against pallas on both steps
+    python3 chip_smoke.py --mfu            # the FLOP count and MFU of both mutual steps
 
 1. Setup: prints the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and builds the hand-written kernels from this checkout's
@@ -55,7 +58,10 @@
    at full R-50 width with 80 classes, canvas 768x1344, 8 labeled + 8
    unlabeled images, random weights from a seed: one burn-in step, the
    boundary copy, and three mutual steps, with the FCOS kernels' launch
-   counts taken over exactly that run.
+   counts taken over exactly that run; then one more mutual step under
+   FlopCounterMode (ubteacher_tpu_torch/tools/mfu.py): each timed mutual
+   step's MFU, its FLOPs over its seconds over the card's dense-bf16 peak
+   (989 TFLOP/s for an H100 SXM, 756 for a PCIe card, by the card's name).
 5. Faster R-CNN reference phase: the CPU parity tests' small configuration
    (R-18, 3 classes, 64x64), one mutual step (oracle pseudo labels) and the
    teacher branch (make_rcnn_inference_fn and the BBOX_THRESHOLD cut), on
@@ -67,7 +73,7 @@
    at full width (R-50-FPN P2-P6, 80 classes, 3 anchors per cell), canvas
    768x1344, 8+8 images, random weights from a seed: one burn-in step, the
    boundary copy and three mutual steps, with exact launch counts of the
-   R-CNN kernels over that run.
+   R-CNN kernels over that run, and the steps' MFU as in phase 4.
 7. Eval reference phase: a small FCOS mutual step with the fused stem
    (TPU.STEM_MODE "pallas"), and evaluation of the small FCOS configuration
    through TestDataLoader and inference_on_dataset, each on the card and on
@@ -99,15 +105,25 @@
    and data_time, peak memory.
 11. Faster R-CNN train loop: the same for UBRCNNTeacherTrainer, 4 iterations
    (burn-in 1, checkpoints at 2 and 4, eval at 4) and 2 resumed.
+12. FCOS lift: ubteacher_tpu_torch/tools/learning_sanity.py's supervised-only
+   against SSOD ablation at tests/test_fcos_lift.py's seeded recipe (1000
+   steps, burn-in 600, 128x128, 64 synthetic images of which 8 labeled,
+   colour jitter 40, seed 0) through the trainers' entry points on the card;
+   it must lift as that test asserts: the SSOD student and teacher above the
+   supervised student on held-out AP, mean pseudo boxes a batch above 1.
 
 The kernels' launch counts in the JSON line are the sums over the slice
-phases (4, 6, 8, 9) and the train loops (10, 11).
+phases (4, 6, 8, 9), the train loops (10, 11) and the lift (12).
 
-With --profile-rcnn (--profile-fcos) only the setup runs, then the slice
-configuration of phase 6 (phase 4) for one burn-in step, the boundary step
-and WALL_STEPS timed mutual steps (the step wall), then PROFILED_STEPS
-mutual steps under torch.profiler: device time per step in all, by group
-and by kernel, and the kernel launches per step. It prints no result line.
+The flags run one tool after the setup and print no result line:
+--profile-rcnn (--profile-fcos) runs ubteacher_tpu_torch/tools/profile_step.py
+on the slice configuration of phase 6 (phase 4): one burn-in step, the
+boundary step and WALL_STEPS timed mutual steps (the step wall), then
+PROFILED_STEPS mutual steps under torch.profiler: device time per step in
+all, by group and by kernel, and the kernel launches per step. --lift runs
+phase 12 and then the same ablation for Faster R-CNN (recorded, no pass
+mark). --ab-stem runs tools/ab_stem.py, --mfu tools/mfu.py (its JSON goes to
+ubteacher_tpu_torch/tools/flops_mutual.json).
 
 Prints the kernels' JSON line second to last and
 {"ok": true, "device": {...}} last; exits nonzero, with no result line, on
@@ -127,12 +143,21 @@ import sys
 import time
 import warnings
 
+from ubteacher_tpu_torch.tools import ab_stem, common, learning_sanity, mfu, profile_step
+from ubteacher_tpu_torch.tools.common import (
+    build_fcos_model,
+    build_rcnn_model,
+    build_rcnn_state,
+    build_state,
+    gpu_name_and_power,
+    load_cfg,
+    synthetic_batch,
+)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CFG = os.path.join(ROOT, "configs", "FCOS", "coco-standard", "fcos_R_50_ut2_sup1_run0.yaml")
-RCNN_CFG = os.path.join(ROOT, "configs", "Faster-RCNN", "coco-standard",
-                        "faster_rcnn_R_50_FPN_ut2_sup1_run0.yaml")
-CANVAS = (768, 1344)
-BATCH_LABEL = BATCH_UNLABEL = 8
+CFG, RCNN_CFG = common.FCOS_CFG, common.RCNN_CFG
+CANVAS = common.CANVAS
+BATCH_LABEL = BATCH_UNLABEL = common.BATCH
 MUTUAL_STEPS = 3
 NMS_B, NMS_K, NMS_T = 8, 5000, 0.6
 NMS_RPN_K, NMS_RPN_T = 2000, 0.7  # the student RPN's NMS: 24 images x 5 levels of 2,000 (MODEL.RPN.NMS_THRESH)
@@ -143,7 +168,7 @@ SCATTER_ROUNDS = 5
 # cls_logits bias for the slice: sigmoid(1.0) = 0.73 lifts the random-init
 # teacher's scores past INFERENCE_TH_TRAIN (0.05) and BBOX_THRESHOLD (0.5);
 # with the prior-probability bias (-4.6) a teacher on noise feeds NMS nothing
-SLICE_CLS_BIAS = 1.0
+SLICE_CLS_BIAS = common.FCOS_CLS_BIAS
 FCOS_KERNELS = ("nms", "focal_fwd", "focal_bwd", "giou_fwd", "giou_bwd")
 
 # Faster R-CNN main path: the fused mutual step's student batch is labeled
@@ -157,7 +182,7 @@ RCNN_ROIS = 512
 # class 0's cls_score bias for the slice: softmax exp(6) / (exp(6) + 80)
 # = 0.83 passes BBOX_THRESHOLD 0.7, so the random-init teacher yields pseudo
 # boxes and the teacher's ROIAlign and both NMS calls see real work
-RCNN_SLICE_CLS_BIAS = 6.0
+RCNN_SLICE_CLS_BIAS = common.RCNN_CLS_BIAS
 # the CPU parity tests' small R-CNN configuration (tests/torch_parity.py)
 RCNN_SMALL_OPTS = [
     "MODEL.ROI_HEADS.NUM_CLASSES", "3", "MODEL.RESNETS.DEPTH", "18",
@@ -168,8 +193,6 @@ RCNN_SMALL_OPTS = [
     "TPU.ORACLE_PSEUDO", "True",
 ]
 RCNN_SMALL_CANVAS = (64, 64)
-# --profile-rcnn: unprofiled mutual steps timed for the wall, then profiled
-WALL_STEPS, PROFILED_STEPS = 5, 3
 
 # evaluation: the test canvas and batch of both recipes (TPU.TEST_CANVAS,
 # TPU.EVAL_BATCH); 64 landscape + 16 portrait images of COCO-like sizes give
@@ -204,19 +227,11 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
-def gpu_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM
 # bytes per second, float32 on the CUDA cores and bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F32 = 67e12
-PEAK_BF16_TENSOR = 989e12
+PEAK_BF16_TENSOR = common.PEAK_BF16["H100 SXM"]
 
 
 def nbytes(*tensors) -> int:
@@ -1362,45 +1377,6 @@ def kernel_phase(device):
 # --------------------------------------------------------------------------
 
 
-def load_cfg(opts, path=CFG):
-    from ubteacher_tpu_torch.config import add_ubteacher_config, get_cfg
-
-    cfg = get_cfg()
-    add_ubteacher_config(cfg)
-    cfg.merge_from_file(path)
-    cfg.merge_from_list(opts)
-    cfg.freeze()
-    return cfg
-
-
-def synthetic_batch(cfg, b_label, b_unlabel, canvas, gen, device, num_classes=None):
-    """Seeded images in [0, 255] and up to 12 gt boxes per labeled image."""
-    import torch
-
-    from ubteacher_tpu_torch.structures import PaddedInstances
-
-    h, w = canvas
-    m = cfg.TPU.MAX_GT
-    nb = min(12, m)
-    boxes = torch.zeros((b_label, m, 4), device=device)
-    x0 = torch.rand((b_label, nb), generator=gen, device=device) * (w * 0.8)
-    y0 = torch.rand((b_label, nb), generator=gen, device=device) * (h * 0.8)
-    bw = torch.rand((b_label, nb), generator=gen, device=device) * (w * 0.15) + 8
-    bh = torch.rand((b_label, nb), generator=gen, device=device) * (h * 0.15) + 8
-    boxes[:, :nb] = torch.stack([x0, y0, x0 + bw, y0 + bh], -1)
-    num_classes = cfg.MODEL.FCOS.NUM_CLASSES if num_classes is None else num_classes
-    classes = torch.randint(0, num_classes, (b_label, m), generator=gen, device=device)
-    mask = torch.zeros((b_label, m), dtype=torch.bool, device=device)
-    mask[:, :nb] = True
-    gt = PaddedInstances(boxes, classes, torch.ones((b_label, m), device=device),
-                         torch.zeros((b_label, m, 4), device=device), mask)
-
-    def images(b):
-        return (torch.randn((b, h, w, 3), generator=gen, device=device) * 45 + 110).clamp(0, 255)
-
-    return {"images_label_k": images(b_label), "gt_label": gt, "images_unlabel_k": images(b_unlabel)}
-
-
 def to_device(value, device):
     """A tensor or a dataclass of tensors (PaddedInstances, StrongAugParams,
     SamplingDraws) on `device`."""
@@ -1410,51 +1386,10 @@ def to_device(value, device):
     return value.to(device)
 
 
-def build_fcos_model(cfg, device, seed, cls_bias):
-    """OneStageDetector from `seed` (drawn on the CPU, so every device gets
-    the same weights) with every cls_logits bias set to `cls_bias`."""
-    import torch
-
-    from ubteacher_tpu_torch.modeling.fcos_head import build_one_stage_detector
-
-    model = build_one_stage_detector(cfg, device, torch.Generator().manual_seed(seed))
-    with torch.no_grad():
-        model.head.cls_logits.bias.fill_(cls_bias)
-    return model
-
-
-def build_state(cfg, device, seed, cls_bias):
-    from ubteacher_tpu_torch.engine import FCOSTrainState
-    from ubteacher_tpu_torch.solver import build_optimizer
-
-    model = build_fcos_model(cfg, device, seed, cls_bias)
-    return FCOSTrainState.create(model, build_optimizer(cfg, model))
-
-
-def build_rcnn_model(cfg, device, seed, cls_bias):
-    """TwoStageRCNN from `seed` (drawn on the CPU) with class 0's cls_score
-    bias set to `cls_bias`."""
-    import torch
-
-    from ubteacher_tpu_torch.modeling.rcnn import build_two_stage_rcnn
-
-    model = build_two_stage_rcnn(cfg, device, torch.Generator().manual_seed(seed))
-    with torch.no_grad():
-        model.box_predictor.cls_score.bias[0] = cls_bias
-    return model
-
-
-def build_rcnn_state(cfg, device, seed, cls_bias):
-    from ubteacher_tpu_torch.engine.rcnn_trainer import RCNNTrainState
-    from ubteacher_tpu_torch.solver import build_optimizer
-
-    model = build_rcnn_model(cfg, device, seed, cls_bias)
-    return RCNNTrainState.create(model, build_optimizer(cfg, model))
-
-
 def run_slice(name, state, steps, batch, burn_up, device):
     """1 + MUTUAL_STEPS steps with the launch counts reset just before and
-    read just after. Returns (per-step (is_mutual, metrics), counts)."""
+    read just after, then one more mutual step under FlopCounterMode for
+    the mutual steps' MFU. Returns (per-step (is_mutual, metrics), counts)."""
     import torch
 
     from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -1484,7 +1419,26 @@ def run_slice(name, state, steps, batch, burn_up, device):
         bad = [k for k, v in m.items() if not math.isfinite(v)]
         if bad:
             raise AssertionError(f"{name}: non-finite metrics {bad}")
+    flops, _, by_op = mfu.count_step_flops(mutual, state, batch)
+    log_mfu(name, flops, by_op)
     return history, counts
+
+
+def log_mfu(name, flops, by_op) -> None:
+    """Each timed mutual step's MFU: FLOPs per step / step seconds / the
+    card's dense-bf16 peak (by its name: SXM or PCIe)."""
+    import torch
+
+    part, peak = common.peak_bf16(torch.cuda.get_device_name(0))
+    log(f"{name} FLOPs per mutual step {flops} ({flops / 1e12:.3f} TFLOP; FlopCounterMode: convolutions and "
+        f"matmuls, 2 x MAC, forward and backward; the hand-written kernels 0; "
+        f"{ {k: round(v / 1e12, 3) for k, v in by_op.items()} } TFLOP), peak {peak / 1e12:.0f} TFLOP/s dense bf16 "
+        f"({part}), card {gpu_name_and_power()}")
+    for i, ms in enumerate(SLICE_STEP_MS[name]):
+        log(f"{name} mutual step {i}: {ms:.1f} ms, {flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, "
+            f"mfu {100 * flops / (ms / 1e3) / peak:.2f}%")
+    if flops <= 0:
+        raise AssertionError(f"{name}: FlopCounterMode counted no work in the mutual step")
 
 
 def check_ema(name, cfg, mutual_metrics) -> None:
@@ -1545,22 +1499,13 @@ def reference_phase(device, extra_opts=()) -> None:
 
 
 def slice_phase(device):
-    import torch
-
-    from ubteacher_tpu_torch.engine import make_fcos_train_steps
-
-    cfg = load_cfg(["SEMISUPNET.BURN_UP_STEP", "1"])
-    state = build_state(cfg, device, seed=0, cls_bias=SLICE_CLS_BIAS)
+    cfg, steps, state, batch = common.step_setup(False, device)
     n_params = sum(p.numel() for p in state.student.parameters())
-    batch = synthetic_batch(cfg, BATCH_LABEL, BATCH_UNLABEL, CANVAS,
-                            torch.Generator(device=device).manual_seed(1), device)
-    batch["rng"] = torch.Generator(device=device).manual_seed(2)
     log(f"slice: R-{cfg.MODEL.RESNETS.DEPTH} FCOS, {cfg.MODEL.FCOS.NUM_CLASSES} classes, "
         f"{n_params} parameters, canvas {CANVAS}, {BATCH_LABEL}+{BATCH_UNLABEL} images, "
         f"compute {cfg.TPU.COMPUTE_DTYPE}")
 
-    history, counts = run_slice("fcos", state, make_fcos_train_steps(cfg), batch,
-                                cfg.SEMISUPNET.BURN_UP_STEP, device)
+    history, counts = run_slice("fcos", state, steps, batch, cfg.SEMISUPNET.BURN_UP_STEP, device)
     mutual_metrics = [m for is_mutual, m in history if is_mutual]
     check_ema("fcos", cfg, mutual_metrics)
     if not any(m["num_nms_candidates"] > 0 and m["num_pseudo_cls"] > 0
@@ -1693,23 +1638,13 @@ RCNN_EXPECTED = {
 
 
 def rcnn_slice_phase(device):
-    import torch
-
-    from ubteacher_tpu_torch.engine.rcnn_trainer import make_rcnn_train_steps
-
-    cfg = load_cfg(["SEMISUPNET.BURN_UP_STEP", "1"], RCNN_CFG)
-    state = build_rcnn_state(cfg, device, seed=0, cls_bias=RCNN_SLICE_CLS_BIAS)
+    cfg, steps, state, batch = common.step_setup(True, device)
     n_params = sum(p.numel() for p in state.student.parameters())
-    batch = synthetic_batch(cfg, BATCH_LABEL, BATCH_UNLABEL, CANVAS,
-                            torch.Generator(device=device).manual_seed(1), device,
-                            num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES)
-    batch["rng"] = torch.Generator(device=device).manual_seed(2)
     log(f"rcnn slice: R-{cfg.MODEL.RESNETS.DEPTH}-FPN Faster R-CNN, {cfg.MODEL.ROI_HEADS.NUM_CLASSES} "
         f"classes, {cfg.MODEL.ROI_HEADS.LOSS}, {n_params} parameters, canvas {CANVAS}, "
         f"{BATCH_LABEL}+{BATCH_UNLABEL} images, compute {cfg.TPU.COMPUTE_DTYPE}")
 
-    history, counts = run_slice("rcnn", state, make_rcnn_train_steps(cfg), batch,
-                                cfg.SEMISUPNET.BURN_UP_STEP, device)
+    history, counts = run_slice("rcnn", state, steps, batch, cfg.SEMISUPNET.BURN_UP_STEP, device)
     mutual_metrics = [m for is_mutual, m in history if is_mutual]
     check_ema("rcnn", cfg, mutual_metrics)
     if not any(m["num_pseudo"] > 0 for m in mutual_metrics):
@@ -2109,109 +2044,73 @@ def rcnn_loop_phase(device):
     return train_loop_phase(device, "rcnn", UBRCNNTeacherTrainer, RCNN_CFG, bias, tuple(RCNN_EXPECTED))
 
 
-# --profile-rcnn / --profile-fcos: the rows printed, their names cut to fit
-# a log line, and the groups that sum the device rows by the first pattern
-# their name holds
-PROFILE_ROWS, PROFILE_NAME_CHARS = 60, 140
-PROFILE_GROUPS = (
-    ("ROIAlign backward", ("roi_align_backward",)), ("ROIAlign forward", ("roi_align_forward",)),
-    ("NMS", ("nms_",)), ("matcher", ("match_",)), ("row scatter", ("scatter_rows",)),
-    ("GIoU", ("giou",)), ("focal", ("focal_",)),
-    ("convolutions (cuDNN)", ("xmma", "cutlass", "cudnn", "nhwcAddPadding")), ("matmuls", ("nvjet", "gemm")),
-    ("memcpy, memset", ("Memcpy", "Memset")), ("sorts", ("Sort", "sort")), ("reductions", ("reduce_kernel",)),
-    ("upsample, max-pool", ("upsample", "max_pool")), ("copies and casts", ("copy",)),
-    ("gather, scatter, index, cat", ("gather", "scatter", "index", "Cat")),
-    ("elementwise", ("elementwise", "Functor", "where", "clamp", "threshold")),
-)
+# --------------------------------------------------------------------------
+# the FCOS lift: tools/learning_sanity.py's ablation at tests/test_fcos_lift.py's recipe
+# --------------------------------------------------------------------------
+
+# tests/test_fcos_lift.py's recipe: 1000 steps, burn-in 600, 128x128, 64
+# images of which 8 labeled, colour jitter 40, seed 0
+LIFT_RECIPE = dict(steps=1000, burnin=600, size=128, images=64, label_images=8, jitter=40, seed=0)
 
 
-def profile_step(label, steps, state, batch) -> None:
-    """torch.profiler over PROFILED_STEPS mutual steps, after the burn-in
-    step, the boundary step and WALL_STEPS unprofiled mutual steps (their
-    host-clock wall times, median, are the step wall): device time per step
-    by kernel and copy, their sum (the device's busy time), their sums by
-    PROFILE_GROUPS, the kernel launches per step (all of them, and the
-    port's own by its counters) and the largest PROFILE_ROWS rows, printed."""
+def lift_phase(device, rcnn=False):
+    """The supervised-only vs SSOD ablation through the trainers' entry
+    points on the card, its launch counts reset just before and read just
+    after. FCOS must lift as tests/test_fcos_lift.py asserts (the SSOD
+    student and teacher above the supervised student, mean pseudo boxes a
+    batch above 1); the R-CNN ablation has no pass mark (the JAX package
+    pins none): finite AP fields and recorded pseudo counts."""
+    import argparse
+    import contextlib
+    import io
+
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    burnin, mutual = steps
-    state, _ = burnin(state, batch)
-    walls = []
-    for _ in range(1 + WALL_STEPS):  # the boundary step, then the timed ones
-        t0 = time.perf_counter()
-        state, _ = mutual(state, batch)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+    name = "rcnn lift" if rcnn else "fcos lift"
+    args = argparse.Namespace(rcnn=rcnn, bbox_thresh=None, oracle_pseudo=False, cpu=False, opts=[], **LIFT_RECIPE)
+    torch.cuda.synchronize()
     reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_STEPS):
-            state, _ = mutual(state, batch)
-        torch.cuda.synchronize()
-    ported = {k: v / PROFILED_STEPS for k, v in launch_counts().items() if v}
-    rows = []
-    for e in prof.key_averages():  # the device's own rows (kernels, copies): an op's row repeats its kernels
-        if e.device_type != DeviceType.CPU and e.self_device_time_total > 0:
-            rows.append((e.self_device_time_total / PROFILED_STEPS / 1e3, e.count / PROFILED_STEPS, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    wall = statistics.median(walls[1:])
-    kernels = sum(calls for _, calls, name in rows if not name.startswith(("Memcpy", "Memset")))
-    lines = [f"{label}, {BATCH_LABEL}+{BATCH_UNLABEL} images at {CANVAS}: step wall {wall:.2f} ms "
-             f"(median of {WALL_STEPS} unprofiled steps {[round(w, 2) for w in walls[1:]]}); device busy {busy:.2f} ms "
-             f"per step over {PROFILED_STEPS} profiled steps ({100 * (1 - busy / wall):.1f}% idle against the wall)",
-             f"kernel launches per step {kernels:.0f} (memcpy and memset rows "
-             f"{sum(c for _, c, n in rows if n.startswith(('Memcpy', 'Memset'))):.0f}); the port's kernels per step {ported}"]
-    groups = {}
-    for ms, calls, name in rows:
-        group = next((g for g, pats in PROFILE_GROUPS if any(p in name for p in pats)), "other")
-        ms_sum, calls_sum = groups.get(group, (0.0, 0.0))
-        groups[group] = (ms_sum + ms, calls_sum + calls)
-    lines += [f"{ms:10.3f} ms {100 * ms / busy:5.1f}% {calls:7.0f} calls  {group}" for group, (ms, calls) in
-              sorted(groups.items(), key=lambda kv: -kv[1][0])]
-    lines += [f"{ms:10.3f} ms {calls:6.0f} calls  {name[:PROFILE_NAME_CHARS]}" for ms, calls, name in rows[:PROFILE_ROWS]]
-    for line in lines:
-        log(line)
+    t0 = time.perf_counter()
+    printed = io.StringIO()  # the tool's JSON line, logged below under the phase's name
+    with contextlib.redirect_stdout(printed):
+        out = learning_sanity.run_ablation(args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"{name}: {json.dumps(out)}")
+    log(f"{name}: both arms in {time.perf_counter() - t0:.1f} s; launches {counts}")
+    aps = [out["sup"]["ap_student"], out["ssod"]["ap_student"], out["ssod"].get("ap_teacher", float("nan"))]
+    if not all(math.isfinite(v) for v in aps) or out["ssod"]["mean_pseudo_boxes"] is None:
+        raise AssertionError(f"{name}: AP fields {aps}, mean pseudo boxes {out['ssod']['mean_pseudo_boxes']}")
+    if not rcnn and not (out["ssod_beats_sup_student"] and out["ssod_beats_sup_teacher"]
+                         and out["ssod"]["mean_pseudo_boxes"] > 1.0):
+        raise AssertionError(f"{name}: no SSOD lift at the seeded recipe: {out}")
+    expected = ("nms", "matcher", "roi_align_fwd", "roi_align_bwd", "row_scatter") if rcnn else FCOS_KERNELS
+    missing = [k for k in expected if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels not launched: {missing}")
+    return counts
 
 
-def profile_rcnn_step(device) -> None:
-    """profile_step over the full R-CNN slice configuration of phase 6."""
-    import torch
-
-    from ubteacher_tpu_torch.engine.rcnn_trainer import make_rcnn_train_steps
-
-    cfg = load_cfg(["SEMISUPNET.BURN_UP_STEP", "1"], RCNN_CFG)
-    state = build_rcnn_state(cfg, device, seed=0, cls_bias=RCNN_SLICE_CLS_BIAS)
-    batch = synthetic_batch(cfg, BATCH_LABEL, BATCH_UNLABEL, CANVAS,
-                            torch.Generator(device=device).manual_seed(1), device,
-                            num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES)
-    batch["rng"] = torch.Generator(device=device).manual_seed(2)
-    profile_step("R-CNN mutual step", make_rcnn_train_steps(cfg), state, batch)
+def run_lifts(device) -> None:
+    """--lift: the FCOS lift (asserted) and the R-CNN ablation (recorded)."""
+    lift_phase(device)
+    lift_phase(device, rcnn=True)
 
 
-def profile_fcos_step(device) -> None:
-    """profile_step over the full FCOS slice configuration of phase 4."""
-    import torch
-
-    from ubteacher_tpu_torch.engine import make_fcos_train_steps
-
-    cfg = load_cfg(["SEMISUPNET.BURN_UP_STEP", "1"])
-    state = build_state(cfg, device, seed=0, cls_bias=SLICE_CLS_BIAS)
-    batch = synthetic_batch(cfg, BATCH_LABEL, BATCH_UNLABEL, CANVAS,
-                            torch.Generator(device=device).manual_seed(1), device)
-    batch["rng"] = torch.Generator(device=device).manual_seed(2)
-    profile_step("FCOS mutual step", make_fcos_train_steps(cfg), state, batch)
-
-
-PROFILES = {"--profile-rcnn": profile_rcnn_step, "--profile-fcos": profile_fcos_step}
+# the tools run on their own: python3 chip_smoke.py <flag>; each prints no result line
+TOOLS = {
+    "--profile-rcnn": lambda device: profile_step.run(True, device),
+    "--profile-fcos": lambda device: profile_step.run(False, device),
+    "--lift": run_lifts,
+    "--ab-stem": lambda device: ab_stem.run(device),
+    "--mfu": lambda device: mfu.main([]),
+}
 
 
 def main() -> int:
-    # Triton's compile cache stays inside the checkout, beside the nvcc build
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "ubteacher_tpu_torch", "_build", "triton"))
+    common.triton_cache_in_checkout()
     import torch
 
     if not torch.cuda.is_available():
@@ -2223,8 +2122,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     build_kernels()
-    if len(sys.argv) == 2 and sys.argv[1] in PROFILES:
-        PROFILES[sys.argv[1]](device)
+    if len(sys.argv) == 2 and sys.argv[1] in TOOLS:
+        TOOLS[sys.argv[1]](device)
         log(name_power)
         return 0
     if sys.argv[1:]:
@@ -2236,7 +2135,7 @@ def main() -> int:
               ("rcnn reference", rcnn_reference_phase), ("rcnn slice", rcnn_slice_phase),
               ("eval reference", eval_reference_phase), ("fcos eval slice", fcos_eval_slice_phase),
               ("rcnn eval slice", rcnn_eval_slice_phase), ("fcos train loop", fcos_loop_phase),
-              ("rcnn train loop", rcnn_loop_phase))
+              ("rcnn train loop", rcnn_loop_phase), ("fcos lift", lift_phase))
     for name, phase in phases:
         t0 = time.perf_counter()
         out = phase(device)

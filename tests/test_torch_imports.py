@@ -1,6 +1,7 @@
-"""The port imports torch and never jax, flax, optax or ubteacher_tpu; nor
-cv2, which only the loaders' default image reader and the training
-visualization import, at their call."""
+"""The port imports torch and never jax, flax, optax, ubteacher_tpu or the
+repo's tools/ (the JAX package's tools); nor cv2, which only the loaders'
+default image reader and the training visualization import, at their
+call."""
 
 import subprocess
 import sys
@@ -38,6 +39,13 @@ MODULES = [
     "ubteacher_tpu_torch.ops.stem",
     "ubteacher_tpu_torch.solver",
     "ubteacher_tpu_torch.structures",
+    "ubteacher_tpu_torch.tools",
+    "ubteacher_tpu_torch.tools.ab_stem",
+    "ubteacher_tpu_torch.tools.common",
+    "ubteacher_tpu_torch.tools.learning_sanity",
+    "ubteacher_tpu_torch.tools.mfu",
+    "ubteacher_tpu_torch.tools.parity_eval",
+    "ubteacher_tpu_torch.tools.profile_step",
     "ubteacher_tpu_torch.train_net",
     "ubteacher_tpu_torch.utils.events",
     "ubteacher_tpu_torch.utils.visualizer",
@@ -49,7 +57,7 @@ def test_port_imports_without_jax():
         "import sys\n"
         + "".join(f"import {m}\n" for m in MODULES)
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'ubteacher_tpu', 'triton', 'cv2'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'ubteacher_tpu', 'tools', 'triton', 'cv2'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
