@@ -7,6 +7,7 @@
     python3 chip_smoke.py --lift           # the FCOS lift (phase 12) and the R-CNN ablation
     python3 chip_smoke.py --ab-stem        # TPU.STEM_MODE conv against pallas on both steps
     python3 chip_smoke.py --mfu            # the FLOP count and MFU of both mutual steps
+    python3 chip_smoke.py --data-parallel  # phase 13 alone
 
 1. Setup: prints the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and builds the hand-written kernels from this checkout's
@@ -111,9 +112,34 @@
    colour jitter 40, seed 0) through the trainers' entry points on the card;
    it must lift as that test asserts: the SSOD student and teacher above the
    supervised student on held-out AP, mean pseudo boxes a batch above 1.
+13. Data parallel (ubteacher_tpu_torch.parallel; NCCL refuses two ranks on
+   one device, so the two-rank parts run gloo, through host memory, with
+   both ranks on the one card):
+   (a) both steps (burn-in, mutual) of both trainers at the reference
+   phases' small sizes, float32, the draws for the global batch injected,
+   on 2 gloo ranks against one process with the whole batch on the card:
+   counts equal, losses as agree() holds them, updates within 1e-2 over
+   the model, the ranks' parameters bitwise equal;
+   (b) the full-width FCOS recipe through the trainer's entry points on 2
+   gloo ranks (global 8 + 8, 4 + 4 a rank) fed phase 10's images: burn-in,
+   the boundary and two mutual steps, one checkpoint written by rank 0,
+   the teacher's eval of the 16 test images split over the ranks; losses
+   finite, parameters bitwise equal across ranks, both ranks' AP fields
+   equal and within 0.01 AP of one process's eval of the checkpoint (0 at
+   random weights), the test set's ground truth gathered from the ranks'
+   shares scoring AP 100 on both, a resumed 2-rank trainer holding the
+   saved state bitwise; per-iteration times and each rank's peak memory;
+   (c) the recipe at world size 1 on NCCL through parallel.launch (what the
+   CLI's --num-gpus launches): 2 iterations, then 2 resumed under torch's
+   sync debug mode (no wait for the device but the metrics fetch), timed
+   beside phase 10's resumed run (the same batches, no process group); then
+   phase 4's FCOS slice steps on that rank, timed beside phase 4's.
+   A rank that dies fails the launch, and a collective waits at most
+   DP_TIMEOUT seconds for a silent peer.
 
 The kernels' launch counts in the JSON line are the sums over the slice
-phases (4, 6, 8, 9), the train loops (10, 11) and the lift (12).
+phases (4, 6, 8, 9), the train loops (10, 11), the lift (12) and every
+rank of the data-parallel phase (13).
 
 The flags run one tool after the setup and print no result line:
 --profile-rcnn (--profile-fcos) runs ubteacher_tpu_torch/tools/profile_step.py
@@ -123,7 +149,7 @@ PROFILED_STEPS mutual steps under torch.profiler: device time per step in
 all, by group and by kernel, and the kernel launches per step. --lift runs
 phase 12 and then the same ablation for Faster R-CNN (recorded, no pass
 mark). --ab-stem runs tools/ab_stem.py, --mfu tools/mfu.py (its JSON goes to
-ubteacher_tpu_torch/tools/flops_mutual.json).
+ubteacher_tpu_torch/tools/flops_mutual.json), --data-parallel phase 13.
 
 Prints the kernels' JSON line second to last and
 {"ok": true, "device": {...}} last; exits nonzero, with no result line, on
@@ -219,8 +245,11 @@ LOOP_IMAGES = ((24, (480, 640)), (24, (640, 427)), (24, (480, 640)), (24, (640, 
 LOOP_RUNS = {"fcos": (6, 2, 3, 6), "rcnn": (4, 1, 2, 4)}
 RESUME_STEPS = 2
 LOADER_BATCHES = 6  # timed batches of the loader alone, after one untimed
-# the slice phases' mutual step times (ms), for the loop phases' log
+# the slice phases' mutual step times (ms), for the loop phases' log, and
+# the loop phases' iteration times, for the data-parallel phase's log
 SLICE_STEP_MS = {}
+LOOP_ITER_MS = {}
+LOOP_RESUMED_MS = {}
 
 
 def log(*args) -> None:
@@ -1891,6 +1920,40 @@ def same_state(a, b) -> list:
     return bad
 
 
+def loop_opts(out_dir, iters, burn_up, ckpt_period, eval_period) -> list:
+    """The train loops' overrides of a recipe: 8 + 8 images (the global
+    batch), 8 data threads, random weights."""
+    return ["SOLVER.IMG_PER_BATCH_LABEL", str(BATCH_LABEL), "SOLVER.IMG_PER_BATCH_UNLABEL", str(BATCH_UNLABEL),
+            "SOLVER.MAX_ITER", str(iters), "SEMISUPNET.BURN_UP_STEP", str(burn_up), "SOLVER.CHECKPOINT_PERIOD",
+            str(ckpt_period), "TEST.EVAL_PERIOD", str(eval_period), "TPU.DATA_THREADS", "8", "MODEL.WEIGHTS", "",
+            "OUTPUT_DIR", out_dir]
+
+
+def loop_datasets(num_classes):
+    """The train loops' seeded in-memory images: (datasets, image_loader)."""
+    dicts, image_loader = eval_dataset(LOOP_IMAGES, num_classes, seed=3)
+    n_label, n_unlabel = (sum(n for n, _ in LOOP_IMAGES[k:k + 2]) for k in (0, 2))
+    return {"train": dicts[:n_label], "train_unlabel": dicts[n_label:n_label + n_unlabel],
+            "test": dicts[n_label + n_unlabel:], "meta": {}}, image_loader
+
+
+def sync_sites(caught) -> dict:
+    """{file:line: count} of torch's sync-debug warnings under the repo."""
+    return dict(collections.Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+                                    if "synchroniz" in str(w.message)))
+
+
+def check_only_metrics_fetch(name, sites, iterations) -> None:
+    """The port's only wait for the device is the metrics fetch, once an
+    iteration; the checkpoint's copies (and a barrier's wait) sit in
+    torch's own files."""
+    port_sites = {k: v for k, v in sites.items() if k.startswith("ubteacher_tpu_torch/")}
+    if len(port_sites) != 1 or not all(k.startswith("ubteacher_tpu_torch/engine/trainer.py") and v == iterations
+                                       for k, v in port_sites.items()):
+        raise AssertionError(f"{name}: the port waits for the device at {port_sites}, "
+                             f"expected the metrics fetch once an iteration")
+
+
 def train_loop_phase(device, name, trainer_cls, cfg_path, set_bias, kernels):
     """The training run through the trainer's entry points at the recipe's
     full width, then a resumed run of RESUME_STEPS more iterations; returns
@@ -1907,17 +1970,11 @@ def train_loop_phase(device, name, trainer_cls, cfg_path, set_bias, kernels):
     shutil.rmtree(out_dir, ignore_errors=True)
 
     def cfg_for(iters):
-        return load_cfg(["SOLVER.IMG_PER_BATCH_LABEL", str(BATCH_LABEL), "SOLVER.IMG_PER_BATCH_UNLABEL",
-                         str(BATCH_UNLABEL), "SOLVER.MAX_ITER", str(iters), "SEMISUPNET.BURN_UP_STEP", str(burn_up),
-                         "SOLVER.CHECKPOINT_PERIOD", str(ckpt_period), "TEST.EVAL_PERIOD", str(eval_period),
-                         "TPU.DATA_THREADS", "8", "MODEL.WEIGHTS", "", "OUTPUT_DIR", out_dir], cfg_path)
+        return load_cfg(loop_opts(out_dir, iters, burn_up, ckpt_period, eval_period), cfg_path)
 
     cfg = cfg_for(max_iter)
     num_classes = cfg.MODEL.FCOS.NUM_CLASSES if name == "fcos" else cfg.MODEL.ROI_HEADS.NUM_CLASSES
-    dicts, image_loader = eval_dataset(LOOP_IMAGES, num_classes, seed=3)
-    n_label, n_unlabel = (sum(n for n, _ in LOOP_IMAGES[k:k + 2]) for k in (0, 2))
-    datasets = {"train": dicts[:n_label], "train_unlabel": dicts[n_label:n_label + n_unlabel],
-                "test": dicts[n_label + n_unlabel:], "meta": {}}
+    datasets, image_loader = loop_datasets(num_classes)
 
     def trainer(c):
         t = trainer_cls(c, datasets=datasets, image_loader=image_loader, device=device)
@@ -1951,6 +2008,7 @@ def train_loop_phase(device, name, trainer_cls, cfg_path, set_bias, kernels):
             f"{m['data_time'] * 1e3:.1f} ms, total_loss {m['total_loss']:.6g}, "
             + ", ".join(f"{k}={v:.6g}" for k, v in m.items() if k.startswith("num_")))
     mutual_ms = [m["time"] * 1e3 for m in steps[burn_up:]]
+    LOOP_ITER_MS[name] = [m["time"] * 1e3 for m in steps]
     log(f"{name} train loop: {len(steps)} iterations + checkpoints + eval in {seconds:.1f} s; launches {counts}; "
         f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB); median mutual iteration {statistics.median(mutual_ms):.1f} "
         f"ms (slice phase's median mutual step {statistics.median(SLICE_STEP_MS[name]):.1f} ms); median data_time "
@@ -1994,17 +2052,10 @@ def train_loop_phase(device, name, trainer_cls, cfg_path, set_bias, kernels):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    sites = collections.Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
-                                if "synchroniz" in str(w.message))
+    sites = sync_sites(caught)
     log(f"{name} train loop: synchronizing calls by site over the resumed run ({RESUME_STEPS} iterations, "
-        f"one checkpoint): {dict(sites)}")
-    # the port's only wait for the device is the metrics fetch, once an
-    # iteration; the checkpoint's copies sit in torch's own files
-    port_sites = {k: v for k, v in sites.items() if k.startswith("ubteacher_tpu_torch/")}
-    if len(port_sites) != 1 or not all(k.startswith("ubteacher_tpu_torch/engine/trainer.py") and v == RESUME_STEPS
-                                       for k, v in port_sites.items()):
-        raise AssertionError(f"{name} train loop: the port waits for the device at {port_sites}, "
-                             f"expected the metrics fetch once an iteration")
+        f"one checkpoint): {sites}")
+    check_only_metrics_fetch(f"{name} train loop", sites, RESUME_STEPS)
     for k, v in launch_counts().items():
         counts[k] += v
     more = [m for m in read_lines(out_dir)[len(lines):] if "total_loss" in m]
@@ -2013,6 +2064,7 @@ def train_loop_phase(device, name, trainer_cls, cfg_path, set_bias, kernels):
     bad = [k for m in more for k, v in m.items() if k.startswith("loss") and not math.isfinite(v)]
     if bad:
         raise AssertionError(f"{name} train loop: the resumed run's losses {bad} are not finite")
+    LOOP_RESUMED_MS[name] = [m["time"] * 1e3 for m in more]
     log(f"{name} train loop: the resumed run took iterations {max_iter + 1}..{max_iter + RESUME_STEPS}, times "
         + ", ".join(f"{m['time'] * 1e3:.1f}" for m in more) + " ms")
     del t2
@@ -2099,6 +2151,423 @@ def run_lifts(device) -> None:
     lift_phase(device, rcnn=True)
 
 
+# --------------------------------------------------------------------------
+# data parallel: ranks of ubteacher_tpu_torch.parallel on the one card
+# --------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_DIR = os.path.join(ROOT, "ubteacher_tpu_torch", "_build", "chip_smoke_dp")
+# (a): 4 + 4 FCOS images (2 + 2 a rank; the labeled rows of rank 1 hold one
+# gt box, rank 0's four, so the ranks' positive counts differ) and the
+# R-CNN reference phase's 2 + 2
+DP_SMALL_B = 4
+# (b), (c): (iterations, burn-in) of the full-width FCOS runs; (b) checkpoints
+# at its last iteration and then evaluates the 16 test images of phase 10;
+# (c) runs its iterations, then RESUME_STEPS more resumed (timed and checked,
+# as phase 10's resumed run: the loader restarts from its seed, so both
+# resumed runs take the same batches)
+DP_LOOP = (4, 1)
+DP_NCCL_LOOP = (2, 1)
+# seconds a collective waits for a silent peer before the run fails
+DP_TIMEOUT = 300.0
+
+
+def dp_small_cases():
+    """(a)'s cases, built alike in every process: {name: (cfg, make_steps,
+    build_state, global batch on the CPU, [(step fn name, step, extra
+    batch keys)])}, the draws for the global batch injected."""
+    import torch
+
+    from ubteacher_tpu_torch.data.augment import draw_strong_params
+    from ubteacher_tpu_torch.engine import make_fcos_train_steps
+    from ubteacher_tpu_torch.engine.rcnn_trainer import make_rcnn_train_steps
+
+    cfg = load_cfg(FCOS_SMALL_OPTS + ["SEMISUPNET.BURN_UP_STEP", "1"])
+    canvas = (64, 96)
+    cpu = torch.device("cpu")
+    batch = synthetic_batch(cfg, DP_SMALL_B, DP_SMALL_B, canvas, torch.Generator().manual_seed(100), cpu)
+    batch["gt_label"].mask[DP_SMALL_B // 2:, 1:] = False
+    draws = torch.Generator().manual_seed(7)
+    fcos_steps = [("burnin", 0, {"strong_label": draw_strong_params(DP_SMALL_B, *canvas, draws)}),
+                  ("mutual", 1, {"strong_label": draw_strong_params(DP_SMALL_B, *canvas, draws),
+                                 "strong_unlabel": draw_strong_params(DP_SMALL_B, *canvas, draws)})]
+    rcfg = load_cfg(RCNN_SMALL_OPTS, RCNN_CFG)
+    rbatch = rcnn_small_batch(rcfg)
+    sup = rbatch.pop("sampling_sup")
+    b = rbatch["images_label_k"].shape[0]
+    views = 2 if rcfg.SEMISUPNET.USE_SUP_STRONG == "both" else 1
+    n_props = rcfg.MODEL.RPN.POST_NMS_TOPK_TRAIN + rcfg.TPU.MAX_GT  # the burn-in's gt slots
+    burnin_draws = type(sup)(sup.rpn[:views * b], sup.roi[:views * b, :, :n_props].contiguous())
+    rcnn_steps = [("burnin", 0, {"sampling_sup": burnin_draws}),
+                  ("mutual", rcfg.SEMISUPNET.BURN_UP_STEP, {"sampling_sup": sup})]
+    return {
+        "fcos": (cfg, make_fcos_train_steps, lambda dev: build_state(cfg, dev, seed=0, cls_bias=0.5), batch,
+                 fcos_steps),
+        "rcnn": (rcfg, make_rcnn_train_steps, lambda dev: build_rcnn_state(rcfg, dev, seed=0, cls_bias=2.5),
+                 rbatch, rcnn_steps),
+    }
+
+
+def local_rows(batch):
+    """This rank's rows of a global batch's streams; draws stay global (the
+    steps take their own rows of them)."""
+    from ubteacher_tpu_torch.parallel import owned_rows
+
+    streams = {"images_label_k": "images_label_k", "gt_label": "images_label_k", "label_hw": "images_label_k",
+               "images_unlabel_k": "images_unlabel_k", "gt_unlabel": "images_unlabel_k",
+               "unlabel_hw": "images_unlabel_k"}
+    out = dict(batch)
+    for k, ref in streams.items():
+        if k in batch:
+            own = owned_rows(batch[ref].shape[0])
+            v = batch[k]
+            out[k] = v.map(lambda x: x[own]) if dataclasses.is_dataclass(v) else v[own]
+    return out
+
+
+def bitwise_across_ranks(*modules) -> bool:
+    """Every rank's parameters bit for bit rank 0's (a broadcast and a
+    compare on each rank)."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().reshape(-1) for m in modules for p in m.parameters()])
+    theirs = flat.clone()
+    dist.broadcast(theirs, 0)
+    return torch.equal(flat.view(torch.int32), theirs.view(torch.int32))
+
+
+def run_dp_small(device, names=("fcos", "rcnn")):
+    """(a)'s steps (of the cases `names`) on this process's rows -> {name:
+    [(global metrics, the student's parameters on the CPU, bitwise equal
+    across ranks)]}."""
+    import torch
+
+    from ubteacher_tpu_torch.engine.trainer import host_metrics
+    from ubteacher_tpu_torch.parallel import is_distributed
+
+    out = {}
+    for name, (cfg, make, build, batch, steps) in dp_small_cases().items():
+        if name not in names:
+            continue
+        fns = dict(zip(("burnin", "mutual"), make(cfg)))
+        out[name] = []
+        for which, step, extra in steps:
+            state = build(device)
+            state.step = step
+            _, m = fns[which](state, {k: to_device(v, device) for k, v in local_rows(dict(batch, **extra)).items()})
+            same = bitwise_across_ranks(state.student, state.teacher) if is_distributed() else True
+            out[name].append((host_metrics(m), {k: v.cpu() for k, v in state.student.state_dict().items()}, same))
+        torch.cuda.synchronize()
+    return out
+
+
+def dp_small_rank(out_dir):
+    """(a) on one gloo rank of cuda:0."""
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ubteacher_tpu_torch.parallel import rank
+
+    reset_launch_counts()
+    res = run_dp_small(torch.device("cuda", 0))
+    torch.save({"steps": res, "counts": launch_counts()}, os.path.join(out_dir, f"small_rank{rank()}.pt"))
+
+
+def dp_loop_trainer(cfg, device):
+    """Phase 10's FCOS trainer (its in-memory images, the slice's cls bias)
+    of `cfg`, logging every iteration."""
+    import torch
+
+    from ubteacher_tpu_torch.engine.trainer import UBTeacherTrainer
+
+    datasets, image_loader = loop_datasets(cfg.MODEL.FCOS.NUM_CLASSES)
+    t = UBTeacherTrainer(cfg, datasets=datasets, image_loader=image_loader, device=device)
+    t.storage.log_period = 1
+    with torch.no_grad():
+        t.state.student.head.cls_logits.bias.fill_(SLICE_CLS_BIAS)
+    return t
+
+
+def dp_trainer_rank(out_dir, opts):
+    """(b) on one gloo rank of cuda:0: train, checkpoint (rank 0), evaluate
+    the rank's share of the test set, gather the share's ground truth as
+    detection rows and score them, then resume from the checkpoint."""
+    import torch
+
+    import numpy as np
+
+    from ubteacher_tpu_torch.evaluation.evaluator import evaluate_detection_rows
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ubteacher_tpu_torch.parallel import allgather_host_rows, rank, world_size
+
+    device = torch.device("cuda", 0)
+    cfg = load_cfg(opts, CFG)
+    t1 = dp_loop_trainer(cfg, device)
+    t1.resume_or_load(resume=False)
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    t1.train()
+    results = t1.test(model="teacher")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # the gather with rows that score: each rank's share of the test set's
+    # ground truth fed back as detections must score AP 100 on every rank
+    test = t1.datasets["test"]
+    share = np.array_split(np.arange(len(test)), world_size())[rank()]
+    oracle = evaluate_detection_rows(allgather_host_rows(gt_rows([test[i] for i in share])), test,
+                                     t1.cfg.MODEL.FCOS.NUM_CLASSES)
+    counts = launch_counts()
+    same = bitwise_across_ranks(t1.state.student, t1.state.teacher)
+    saved = t1.checkpoint_state()
+    peak = torch.cuda.max_memory_allocated(device)
+    del t1
+    t2 = dp_loop_trainer(cfg, device)
+    t2.resume_or_load(resume=True)
+    bad = same_state(t2.checkpoint_state(), saved)
+    with open(os.path.join(out_dir, f"rank{rank()}.json"), "w") as f:
+        json.dump({"eval": results, "oracle": {k: oracle[k] for k in ("AP", "AP50", "AP75")}, "counts": counts, "seconds": seconds, "bitwise": same, "peak": peak,
+                   "resume_at": t2.start_iter, "resume_differs": bad[:8]}, f)
+
+
+def dp_nccl_rank(out_dir, argv):
+    """(c): one nccl rank through the CLI's pieces (its parser, setup and
+    device rule; the trainer on in-memory images, cv2 being absent here):
+    DP_NCCL_LOOP's iterations, then the --resume run of RESUME_STEPS more
+    under torch's sync debug mode; then phase 4's FCOS slice steps (seeded
+    weights and batch), timed as phase 4 times them."""
+    import torch
+    import torch.distributed as dist
+
+    from ubteacher_tpu_torch import train_net
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    args = train_net.default_argument_parser().parse_args(argv)
+    cfg = train_net.setup(args)
+    device = torch.device(train_net.device_of(cfg))
+    first = cfg.clone()
+    first.defrost()
+    first.SOLVER.MAX_ITER = DP_NCCL_LOOP[0]
+    first.freeze()
+    t = dp_loop_trainer(first, device)
+    t.resume_or_load(resume=False)
+    t.train()
+    del t
+    t = dp_loop_trainer(cfg, device)
+    t.resume_or_load(resume=args.resume)
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t.train()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts, peak = launch_counts(), torch.cuda.max_memory_allocated(device)
+    del t
+    torch.cuda.empty_cache()
+    _, (burnin, mutual), state, batch = common.step_setup(False, device)
+    step_ms = []
+    for _ in range(1 + MUTUAL_STEPS):
+        t0 = time.perf_counter()
+        state, _ = (burnin if state.step < 1 else mutual)(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    with open(os.path.join(out_dir, "nccl.json"), "w") as f:
+        json.dump({"sites": sync_sites(caught), "counts": counts, "backend": dist.get_backend(),
+                   "world": dist.get_world_size(), "device": str(device), "peak": peak, "step_ms": step_ms}, f)
+
+
+def add_counts(total, counts) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def dp_small_part(device, counts) -> None:
+    """(a): both steps of both trainers at the reference phases' sizes on two
+    gloo ranks of cuda:0 against one process with the whole batch on the
+    card. Counts (num_*) and ema_rate_1000x equal, losses within 1e-3
+    relative + 1e-4 (agree(): cuDNN picks its algorithms by batch size),
+    parameter updates within 1e-2 of one process's over the model, the
+    ranks' parameters bitwise equal."""
+    import torch
+
+    from ubteacher_tpu_torch.parallel import launch
+
+    ref = run_dp_small(device)
+    t0 = time.perf_counter()
+    launch(dp_small_rank, DP_WORLD, backend="gloo", args=(DP_DIR,), timeout=DP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(DP_DIR, f"small_rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+    check_dp_small("data parallel (a)", ref, [rk["steps"] for rk in ranks])
+    for rk in ranks:
+        add_counts(counts, rk["counts"])
+    log(f"data parallel (a): {DP_WORLD} gloo ranks on one card in {seconds:.1f} s (spawn included); launches "
+        f"{[rk['counts'] for rk in ranks]}")
+
+
+def check_dp_small(label, ref, ranks) -> None:
+    """Each rank's run_dp_small against one process's: counts and
+    ema_rate equal and losses as agree() holds them, the parameter updates
+    within 1e-2 of one process's over the model, the ranks bitwise equal."""
+    import torch
+
+    cases = dp_small_cases()
+    for name, steps in ref.items():
+        init = {k: v.cpu() for k, v in cases[name][2](torch.device("cpu")).student.state_dict().items()}
+        for i, (m_ref, sd_ref, _) in enumerate(steps):
+            for r, rk in enumerate(ranks):
+                m, sd, same = rk[name][i]
+                what = f"{label} {name} step {i} rank {r}"
+                agree(what, m, m_ref, [k for k in m_ref if k.startswith("num_") or k == "ema_rate_1000x"])
+                num = den = worst = 0.0
+                for k, v in sd_ref.items():
+                    d_ref = v.double() - init[k].double()
+                    d_got = sd[k].double() - init[k].double()
+                    num += float((d_got - d_ref).norm() ** 2)
+                    den += float(d_ref.norm() ** 2)
+                    if d_ref.any():
+                        worst = max(worst, float((d_got - d_ref).norm() / d_ref.norm()))
+                err = (num / max(den, 1e-300)) ** 0.5
+                log(f"{what}: metrics agree; update error {err:.3g} over the model, worst tensor {worst:.3g}; "
+                    f"parameters bitwise equal across ranks: {same}")
+                if not (den > 0 and err < 1e-2 and same):
+                    raise AssertionError(f"{what}: update error {err}, bitwise across ranks {same}")
+
+
+def dp_trainer_part(device, counts) -> None:
+    """(b): the full-width FCOS recipe through the trainer's entry points on
+    two gloo ranks of cuda:0 (8 + 8 global, 4 + 4 a rank): burn-in, the
+    boundary and two mutual steps, one checkpoint by rank 0, the teacher's
+    eval of 16 images split over the ranks; then one process's eval of the
+    checkpoint. Losses finite, parameters bitwise equal across ranks, the
+    ranks' AP fields equal and within 0.01 AP of one process's, the gathered
+    ground truth at AP 100 on every rank, the resumed state bitwise the
+    saved one."""
+    import shutil
+
+    import torch
+
+    from ubteacher_tpu_torch.parallel import launch
+
+    max_iter, burn_up = DP_LOOP
+    out_dir = os.path.join(DP_DIR, "trainer")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    opts = loop_opts(out_dir, max_iter, burn_up, max_iter, 0)
+    t0 = time.perf_counter()
+    launch(dp_trainer_rank, DP_WORLD, backend="gloo", args=(out_dir, opts), timeout=DP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    steps = [m for m in read_lines(out_dir) if "total_loss" in m]
+    for m in steps:
+        log(f"data parallel (b) iteration {m['iteration']}: time {m['time'] * 1e3:.1f} ms, data_time "
+            f"{m['data_time'] * 1e3:.1f} ms, total_loss {m['total_loss']:.6g}, "
+            + ", ".join(f"{k}={v:.6g}" for k, v in m.items() if k.startswith("num_")))
+    bad = [(m["iteration"], k) for m in steps for k, v in m.items()
+           if (k.startswith("loss") or k == "total_loss") and not math.isfinite(v)]
+    if len(steps) != max_iter or bad:
+        raise AssertionError(f"data parallel (b): {len(steps)} iterations, non-finite losses {bad}")
+    check_ema("data parallel (b)", load_cfg(opts, CFG), steps[burn_up:])
+    for r, rk in enumerate(ranks):
+        log(f"data parallel (b) rank {r}: train + eval {rk['seconds']:.1f} s, max_memory_allocated {rk['peak']} "
+            f"bytes ({rk['peak'] / 2**30:.2f} GiB), launches {rk['counts']}")
+        log(f"data parallel (b) rank {r}: the test set's ground truth gathered from both ranks' shares scores "
+            f"{rk['oracle']}")
+        if any(abs(v - 100.0) > 1e-9 for v in rk["oracle"].values()):
+            raise AssertionError(f"data parallel (b) rank {r}: the gathered ground truth scores {rk['oracle']}")
+        if not rk["bitwise"] or rk["resume_at"] != max_iter or rk["resume_differs"]:
+            raise AssertionError(f"data parallel (b) rank {r}: bitwise across ranks {rk['bitwise']}, resumed at "
+                                 f"{rk['resume_at']}, differing {rk['resume_differs']}")
+        add_counts(counts, rk["counts"])
+    missing = [k for k in FCOS_KERNELS if not all(rk["counts"][k] for rk in ranks)]
+    if missing:
+        raise AssertionError(f"data parallel (b): kernels not launched on every rank: {missing}")
+    ckpts = sorted(n for n in os.listdir(os.path.join(out_dir, "checkpoints")) if n.isdigit())
+    if ckpts != [str(max_iter)]:
+        raise AssertionError(f"data parallel (b): checkpoints {ckpts}")
+
+    one = dp_loop_trainer(load_cfg(opts, CFG), device)
+    one.resume_or_load(resume=True)
+    ref = one.test(model="teacher")
+    del one
+    torch.cuda.empty_cache()
+    fields = [k for k in EVAL_SUMMARY if k in ref]
+    log("data parallel (b) eval (rank 0, rank 1, one process): "
+        + ", ".join(f"{k}={ranks[0]['eval'][k]:.6g}/{ranks[1]['eval'][k]:.6g}/{ref[k]:.6g}" for k in fields))
+    for k in fields:
+        a, b, c = ranks[0]["eval"][k], ranks[1]["eval"][k], ref[k]
+        if not (a == b or (math.isnan(a) and math.isnan(b))) or not (abs(a - c) <= 0.01 or (math.isnan(a) and math.isnan(c))):
+            raise AssertionError(f"data parallel (b) eval {k}: ranks {a}, {b}, one process {c}")
+    mutual_ms = [m["time"] * 1e3 for m in steps[burn_up:]]
+    log(f"data parallel (b): {DP_WORLD} gloo ranks sharing one card (host-memory collectives; not representative "
+        f"of nccl across cards), {seconds:.1f} s with spawn; mutual iterations {[round(x, 1) for x in mutual_ms]} ms "
+        f"against phase 10's one process {[round(x, 1) for x in LOOP_ITER_MS.get('fcos', [])]} ms; card "
+        f"{gpu_name_and_power()}")
+
+
+def dp_nccl_part(device, counts) -> None:
+    """(c): the recipe at world size 1 on nccl through parallel.launch, the
+    CLI's launcher: DP_NCCL_LOOP iterations, the port waiting for the device
+    only at the metrics fetch (torch's sync debug mode, as phase 10)."""
+    import shutil
+
+    from ubteacher_tpu_torch.parallel import launch
+
+    first, burn_up = DP_NCCL_LOOP
+    max_iter = first + RESUME_STEPS
+    out_dir = os.path.join(DP_DIR, "nccl")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    argv = ["--config", CFG, "--num-gpus", "1", "--resume"] + loop_opts(out_dir, max_iter, burn_up, first, 0)
+    t0 = time.perf_counter()
+    launch(dp_nccl_rank, 1, backend="nccl", args=(out_dir, argv), timeout=DP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "nccl.json")) as f:
+        res = json.load(f)
+    steps = [m for m in read_lines(out_dir) if "total_loss" in m]
+    log(f"data parallel (c): backend {res['backend']}, world {res['world']}, {res['device']}; synchronizing calls by "
+        f"site over the resumed run ({RESUME_STEPS} iterations, one checkpoint): {res['sites']}")
+    if res["backend"] != "nccl" or res["world"] != 1 or len(steps) != max_iter:
+        raise AssertionError(f"data parallel (c): {res['backend']} world {res['world']}, {len(steps)} iterations")
+    check_only_metrics_fetch("data parallel (c)", res["sites"], RESUME_STEPS)
+    bad = [k for m in steps for k, v in m.items() if k.startswith("loss") and not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"data parallel (c): non-finite losses {bad}")
+    add_counts(counts, res["counts"])
+    log(f"data parallel (c): iterations {[round(m['time'] * 1e3, 1) for m in steps[:first]]} ms, then resumed "
+        f"{[round(m['time'] * 1e3, 1) for m in steps[first:]]} ms (mutual) against phase 10's resumed "
+        f"{[round(x, 1) for x in LOOP_RESUMED_MS.get('fcos', [])]} ms (mutual, the same batches) in one process "
+        f"without a process group; {seconds:.1f} s with spawn; max_memory_allocated {res['peak']} bytes "
+        f"({res['peak'] / 2**30:.2f} GiB); launches {res['counts']}; card {gpu_name_and_power()}")
+    log(f"data parallel (c): phase 4's FCOS slice steps on this rank (burn-in, boundary, mutual): "
+        f"{[round(x, 1) for x in res['step_ms']]} ms against phase 4's mutual steps without a process group "
+        f"{[round(x, 1) for x in SLICE_STEP_MS.get('fcos', [])]} ms")
+
+
+def dp_phase(device):
+    """Phase 13: (a), (b), (c); the launch counts of every rank's main path."""
+    import shutil
+
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    counts = {}
+    for part in (dp_small_part, dp_trainer_part, dp_nccl_part):
+        t0 = time.perf_counter()
+        part(device, counts)
+        log(f"data parallel {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    return counts
+
+
 # the tools run on their own: python3 chip_smoke.py <flag>; each prints no result line
 TOOLS = {
     "--profile-rcnn": lambda device: profile_step.run(True, device),
@@ -2106,6 +2575,7 @@ TOOLS = {
     "--lift": run_lifts,
     "--ab-stem": lambda device: ab_stem.run(device),
     "--mfu": lambda device: mfu.main([]),
+    "--data-parallel": dp_phase,
 }
 
 
@@ -2135,7 +2605,7 @@ def main() -> int:
               ("rcnn reference", rcnn_reference_phase), ("rcnn slice", rcnn_slice_phase),
               ("eval reference", eval_reference_phase), ("fcos eval slice", fcos_eval_slice_phase),
               ("rcnn eval slice", rcnn_eval_slice_phase), ("fcos train loop", fcos_loop_phase),
-              ("rcnn train loop", rcnn_loop_phase), ("fcos lift", lift_phase))
+              ("rcnn train loop", rcnn_loop_phase), ("fcos lift", lift_phase), ("data parallel", dp_phase))
     for name, phase in phases:
         t0 = time.perf_counter()
         out = phase(device)

@@ -134,11 +134,27 @@ def test_vis_period_writes_panels(tmp_path, coco_root):
 
 
 def test_device_and_process_rules(tmp_path, monkeypatch):
+    """--num-gpus N (x --num-machines) sets the world size of the launch, on
+    gloo with MODEL.DEVICE cpu; a global batch the ranks do not divide
+    raises, and so does --num-gpus above the visible cards."""
+    from ubteacher_tpu_torch import parallel
+
     parser = train_net.default_argument_parser()
-    with pytest.raises(NotImplementedError):
-        train_net.setup(parser.parse_args(["--config", CONFIG, "--num-gpus", "2"]))
-    with pytest.raises(NotImplementedError):
-        train_net.setup(parser.parse_args(["--config", CONFIG, "--num-machines", "2"]))
+    launched = []
+    monkeypatch.setattr(parallel, "launch", lambda main, n, m, r, url, backend=None, args=(): launched.append(
+        (n * m, r, url, backend)))
+    train_net.run(parser.parse_args(["--config", CONFIG, "--num-gpus", "2", "MODEL.DEVICE", "cpu"]))
+    train_net.run(parser.parse_args(["--config", CONFIG, "--num-machines", "2", "--machine-rank", "1", "--dist-url",
+                                     "tcp://10.0.0.1:29500", "MODEL.DEVICE", "cpu"]))
+    train_net.run(parser.parse_args(["--config", CONFIG, "MODEL.DEVICE", "cpu"]))
+    assert launched == [(2, 0, "auto", "gloo"), (2, 1, "tcp://10.0.0.1:29500", "gloo"), (1, 0, "auto", None)]
+    with pytest.raises(ValueError, match="divisible"):
+        train_net.run(parser.parse_args(["--config", CONFIG, "--num-gpus", "2", "MODEL.DEVICE", "cpu",
+                                         "SOLVER.IMG_PER_BATCH_LABEL", "3"]))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="cards are visible"):
+        train_net.run(parser.parse_args(["--config", CONFIG, "--num-gpus", "2"]))
+    assert len(launched) == 3
     cfg = train_net.setup(parser.parse_args(["--config", CONFIG]))
     assert cfg.MODEL.DEVICE == "tpu" and train_net.device_of(cfg) == "cuda:0"  # the shared default: the card
     assert train_net.device_of(train_net.setup(parser.parse_args(["--config", CONFIG, "MODEL.DEVICE", "cpu"]))) == "cpu"

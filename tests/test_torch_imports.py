@@ -37,6 +37,8 @@ MODULES = [
     "ubteacher_tpu_torch.ops.roi_align",
     "ubteacher_tpu_torch.ops.row_gather",
     "ubteacher_tpu_torch.ops.stem",
+    "ubteacher_tpu_torch.parallel",
+    "ubteacher_tpu_torch.parallel.dist",
     "ubteacher_tpu_torch.solver",
     "ubteacher_tpu_torch.structures",
     "ubteacher_tpu_torch.tools",

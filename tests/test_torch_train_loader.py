@@ -22,7 +22,7 @@ from ubteacher_tpu_torch.data import loader as t_loader
 FIELDS = ("boxes", "classes", "scores", "box_std", "mask")
 
 
-def _cfgs(threads=0, extra_canvases=(), crop=None, oracle=False, sampling="range"):
+def _cfgs(threads=0, extra_canvases=(), crop=None, oracle=False, sampling="range", batch=(3, 2)):
     out = []
     for get, add in ((j_get, j_add), (t_get, t_add)):
         cfg = get()
@@ -33,8 +33,7 @@ def _cfgs(threads=0, extra_canvases=(), crop=None, oracle=False, sampling="range
         cfg.TPU.MAX_GT = 6
         cfg.TPU.DATA_THREADS = threads
         cfg.TPU.ORACLE_PSEUDO = oracle
-        cfg.SOLVER.IMG_PER_BATCH_LABEL = 3
-        cfg.SOLVER.IMG_PER_BATCH_UNLABEL = 2
+        cfg.SOLVER.IMG_PER_BATCH_LABEL, cfg.SOLVER.IMG_PER_BATCH_UNLABEL = batch
         cfg.INPUT.MIN_SIZE_TRAIN = (30, 90) if sampling == "range" else (32, 48, 64)
         cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING = sampling
         cfg.INPUT.MAX_SIZE_TRAIN = 120
@@ -208,6 +207,14 @@ def test_weak_augment_matches_jax(crop):
 
 
 def test_multi_process_rows_wait_for_ddp():
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError):
-        t_loader.TwoStreamDataLoader(tcfg, [], [], process_index=0, process_count=2)
+    """Several processes load rows of the global batch (the port's data
+    parallelism; test_torch_parallel.py holds the rows to JAX's): a batch
+    size the processes do not divide raises in both packages, one they
+    divide does not."""
+    jcfg, tcfg = _cfgs()  # 3 labeled images a batch
+    for loader, cfg in ((j_loader, jcfg), (t_loader, tcfg)):
+        with pytest.raises(ValueError, match="divisible"):
+            loader.TwoStreamDataLoader(cfg, [], [], process_index=0, process_count=2)
+    _, tcfg = _cfgs(batch=(4, 2))
+    tl = t_loader.TwoStreamDataLoader(tcfg, [], [], process_index=1, process_count=2)
+    assert tl.local_rows and (tl.process_index, tl.process_count) == (1, 2)

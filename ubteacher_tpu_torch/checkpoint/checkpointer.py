@@ -8,7 +8,9 @@ trainer hands over (student, teacher, optimizer state, step, the strong
 augmentation generator's state), one file per step under
 OUTPUT_DIR/checkpoints/<step>, the newest `max_to_keep` kept. A file is
 written under a temporary name and renamed into place, so a run cut while
-saving leaves no partial checkpoint. Pretrained weights load into the
+saving leaves no partial checkpoint. Under data parallelism rank 0 writes
+and every rank waits for it at a barrier, so a resume on any rank finds the
+file; every rank then loads the same file. Pretrained weights load into the
 student through checkpoint/torch_weights.py.
 """
 
@@ -18,6 +20,8 @@ import os
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from ..parallel import barrier, is_main_process
 
 
 class TSCheckpointer:
@@ -34,12 +38,16 @@ class TSCheckpointer:
         return sorted(int(n) for n in os.listdir(self.directory) if n.isdigit())
 
     def save(self, step: int, state: Dict[str, Any]) -> str:
+        """Rank 0 writes `state` as step `step` (the others' states are the
+        same); every rank returns after the file is in place."""
         path = self._path(step)
-        tmp = os.path.join(self.directory, f".{step}.tmp")
-        torch.save(state, tmp)
-        os.replace(tmp, path)
-        for old in self.steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+        if is_main_process():
+            tmp = os.path.join(self.directory, f".{step}.tmp")
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+            for old in self.steps()[:-self.max_to_keep]:
+                os.remove(self._path(old))
+        barrier()
         return path
 
     def latest_step(self) -> Optional[int]:

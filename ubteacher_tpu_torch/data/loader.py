@@ -46,15 +46,17 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import owned_rows, rank, world_size
 from ..structures import PaddedInstances
 from .augment import materialize_weak_augment, weak_augment_geometry
 
 logger = logging.getLogger("ubteacher_tpu_torch")
 
 # image decodes per stream, and "corrupt": samples that failed to load and
-# were replaced by the next drawn sample; the trainer reports the corrupt
-# count every iteration as corrupt_rows_total (the reference re-draws
-# silently, data/common.py:22-43)
+# were replaced (one process: by the next drawn sample; several: by a zero
+# image and gt row); the trainer reports the corrupt count every iteration
+# as corrupt_rows_total (the reference re-draws silently,
+# data/common.py:22-43)
 DECODE_STATS = {"train": 0, "test": 0, "corrupt": 0}
 _STATS_LOCK = threading.Lock()
 
@@ -180,8 +182,13 @@ class TwoStreamDataLoader:
                        score 1 and box_std ORACLE_BOX_STD
 
     Batches are equal, byte for byte, to the JAX loader's for the same seed
-    and images. One process only: the row ownership of data parallelism
-    (`process_index`, `process_count`) waits for the port's DDP.
+    and images, and so are the rows of process `process_index` of
+    `process_count` (default: this rank of the process group). With several
+    processes every one replays the same sample selection and geometry
+    draws from the metadata alone, and reads and augments only the global
+    batch rows it owns (parallel.owned_rows; a batch size they do not divide
+    raises); a corrupt owned file becomes a zero image with an empty gt row,
+    never a redraw, which would put the processes' streams out of step.
     """
 
     def __init__(
@@ -194,11 +201,14 @@ class TwoStreamDataLoader:
         process_index: Optional[int] = None,
         process_count: Optional[int] = None,
     ):
-        if (process_count or 1) > 1:
-            raise NotImplementedError(
-                f"TwoStreamDataLoader: process_count {process_count}; the port loads for one process "
-                "until its data-parallel trainer exists"
-            )
+        if process_count is None:
+            process_count, process_index = world_size(), rank()
+        self.process_count = process_count
+        self.process_index = process_index or 0
+        self.local_rows = process_count > 1
+        if self.local_rows:
+            for b in (cfg.SOLVER.IMG_PER_BATCH_LABEL, cfg.SOLVER.IMG_PER_BATCH_UNLABEL):
+                owned_rows(b, self.process_index, process_count)  # raises unless divisible
         self.cfg = cfg
         # D2 filter_images_with_only_crowd_annotations: an image counts as
         # empty unless it has at least one non-crowd annotation
@@ -312,6 +322,19 @@ class TwoStreamDataLoader:
         _bump("train")
         return dict(item, image=materialize_weak_augment(img, item["geom"]))
 
+    def _materialize_owned(self, item: Dict) -> Dict:
+        """Several processes: a corrupt file gives a zero uint8 image on its
+        canvas and an all-zero gt row (the sample was chosen from metadata
+        on every process; its owner cannot redraw alone)."""
+        try:
+            return self._materialize(item)
+        except Exception:  # a corrupt file: a zero row, no redraw
+            _bump("corrupt")
+            logger.warning("failed to load %s; feeding a zero image/gt row", item["dict"].get("file_name", "?"))
+            ch, cw = item["bucket"]
+            return dict(item, image=np.zeros((ch, cw, 3), np.uint8),
+                        gt={k: np.zeros_like(v) for k, v in item["gt"].items()})
+
     def _materialized_stream(self, dicts: List[Dict], seed: int) -> Iterator[Dict]:
         """Sequential geometry draws, pixels materialized on the pool through
         a sliding window of in-flight reads that keeps sample order. A
@@ -351,6 +374,19 @@ class TwoStreamDataLoader:
             except Exception:  # a corrupt file: the next sample replaces it
                 consecutive = corrupt(consecutive)
 
+    def _assemble_local(self, label_items: List[Dict], unlabel_items: List[Dict]) -> Dict:
+        """Several processes: materialize and stack only this process's rows
+        of each stream's global batch."""
+        lo = owned_rows(len(label_items), self.process_index, self.process_count)
+        uo = owned_rows(len(unlabel_items), self.process_index, self.process_count)
+        owned = label_items[lo] + unlabel_items[uo]
+        if self.num_threads > 0:
+            done = list(self._pool.map(self._materialize_owned, owned))
+        else:
+            done = [self._materialize_owned(it) for it in owned]
+        nl = lo.stop - lo.start
+        return self._assemble(done[:nl], done[nl:])
+
     def _assemble(self, label_items: List[Dict], unlabel_items: List[Dict]) -> Dict:
         def stack_gt(items, box_std: float = 0.0) -> PaddedInstances:
             return PaddedInstances(
@@ -375,15 +411,19 @@ class TwoStreamDataLoader:
         return out
 
     def __iter__(self) -> Iterator[Dict]:
-        label_batches = self._batched_stream(
-            self._materialized_stream(self.label_dicts, self.seed), self.batch_label
-        )
-        unlabel_batches = self._batched_stream(
-            self._materialized_stream(self.unlabel_dicts, self.seed + 7), self.batch_unlabel
-        )
+        if self.local_rows:
+            # several processes: batch the geometry records; the owned rows
+            # are materialized at assembly, the others never read
+            items, assemble = self._stream, self._assemble_local
+        else:
+            # one process: pixels through the pool right after the
+            # sequential geometry stream, before bucketing
+            items, assemble = self._materialized_stream, self._assemble
+        label_batches = self._batched_stream(items(self.label_dicts, self.seed), self.batch_label)
+        unlabel_batches = self._batched_stream(items(self.unlabel_dicts, self.seed + 7), self.batch_unlabel)
         if self.num_threads <= 0:
             for lb, ub in zip(label_batches, unlabel_batches):
-                yield self._assemble(lb, ub)
+                yield assemble(lb, ub)
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=4)
@@ -402,7 +442,7 @@ class TwoStreamDataLoader:
         def worker():
             try:
                 for lb, ub in zip(label_batches, unlabel_batches):
-                    if not put(self._assemble(lb, ub)):
+                    if not put(assemble(lb, ub)):
                         return
             except Exception as e:  # surfaced to the consumer
                 put(e)

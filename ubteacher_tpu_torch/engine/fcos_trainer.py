@@ -27,7 +27,6 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 from torch import nn
 
-from ..data.augment import apply_strong, draw_strong_params
 from ..modeling.fcos_outputs import (
     compute_locations,
     fcos_assign_targets,
@@ -41,7 +40,7 @@ from ..modeling.fcos_outputs import (
 )
 from ..solver.build import Optimizer
 from ..structures import PaddedInstances
-from .common import float_images, hw_or_canvas
+from .common import float_images, hw_or_canvas, sgd_step, strong_view
 
 
 @dataclasses.dataclass
@@ -80,11 +79,17 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
       gt_label         : PaddedInstances (B, MAX_GT, ...)
       images_unlabel_k : (Bu, Hu, Wu, 3) weak-augmented unlabeled
       rng              : torch.Generator on the images' device, for the
-                         strong-augmentation draws
+                         strong-augmentation draws (the same seeded
+                         generator on every rank)
       label_hw, unlabel_hw (optional): (B, 2) true image sizes
       gt_unlabel (TPU.ORACLE_PSEUDO only): PaddedInstances
       strong_label, strong_unlabel (optional): StrongAugParams to apply in
                          place of draws from `rng`
+
+    Under data parallelism (parallel/dist.py) the batch holds this rank's
+    rows; draws are for the global batch and each rank applies its own rows
+    of them, losses are this rank's shares of the global ones and the
+    gradients are summed over the ranks before the update.
     """
     # float32 math stays float32 on the card: the convolutions run in bf16
     # under autocast (TPU.COMPUTE_DTYPE), and nothing else drops to TF32
@@ -107,13 +112,6 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
         with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=bf16):
             return model(images, hw)
 
-    def _strong(batch: Dict[str, Any], key: str, images: torch.Tensor) -> torch.Tensor:
-        draws = batch.get(f"strong_{key}")
-        if draws is None:
-            b, h, w = images.shape[:3]
-            draws = draw_strong_params(b, h, w, batch["rng"])
-        return apply_strong(images, draws)
-
     def _sup_losses_from_dense(dense, hw, gt, image_hw):
         grid = compute_locations(hw, strides, image_hw.device)
         targets = fcos_assign_targets(
@@ -122,26 +120,20 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
         )
         return fcos_supervised_losses(dense, targets, fcfg)
 
-    def _sgd(state: FCOSTrainState, total: torch.Tensor) -> None:
-        state.optimizer.zero_grad()
-        total.backward()
-        state.optimizer.step()
-        state.step += 1
-
     def burnin_step(state: FCOSTrainState, batch: Dict[str, Any]):
         """Supervised-only step on labeled strong+weak (reference
         trainer.py:191-210)."""
         batch = float_images(batch)
         images_l = batch["images_label_k"]
         label_hw = hw_or_canvas(batch, "label_hw", images_l)
-        label_q = _strong(batch, "label", images_l)
+        label_q = strong_view(batch, "label", images_l)
         images = torch.cat([label_q, images_l], 0)
         gt2 = batch["gt_label"].map(lambda x: torch.cat([x, x], 0))
         hw2 = torch.cat([label_hw, label_hw], 0)
         dense = _forward(state.student, images, hw2)
         losses = _sup_losses_from_dense(dense, images.shape[1:3], gt2, hw2)
         total = sum(losses.values())
-        _sgd(state, total)
+        sgd_step(state, total)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
         return state, metrics
@@ -208,8 +200,8 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
                 state.teacher, unl_k, unlabel_hw
             )
 
-        label_q = _strong(batch, "label", images_l)
-        unl_q = _strong(batch, "unlabel", unl_k)
+        label_q = strong_view(batch, "label", images_l)
+        unl_q = strong_view(batch, "unlabel", unl_k)
 
         images_all_l = torch.cat([label_q, images_l], 0)
         gt2 = batch["gt_label"].map(lambda x: torch.cat([x, x], 0))
@@ -255,7 +247,7 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
             "loss_fcos_loc_pseudo": unsup["loss_fcos_loc"] * w_reg_unsup / (w_reg_unsup + 1.0),
         }
         total = sum(weighted.values())
-        _sgd(state, total)
+        sgd_step(state, total)
 
         metrics = {k: v.detach() for k, v in sup.items()}
         metrics.update({k + "_pseudo": v.detach() for k, v in unsup.items()})

@@ -21,7 +21,9 @@ the optimizer stay in float32.
 Randomness: the strong augmentation and the two samplers (RPN anchors, ROI
 proposals) draw from batch["rng"] unless the batch carries the draws
 (`strong_label`, `strong_unlabel`, `sampling_sup`, `sampling_unsup`), which
-lets the tests replay the JAX package's key splits.
+lets the tests replay the JAX package's key splits. Draws are for the global
+batch; under data parallelism each rank takes its rows of each block
+(parallel/dist.py).
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..data.augment import apply_strong, draw_strong_params
 from ..modeling.anchors import generate_anchors
 from ..modeling.box_regression import Box2BoxTransform, Box2BoxXYXYTransform
 from ..modeling.fast_rcnn import (
@@ -47,7 +48,7 @@ from ..modeling.fcos_outputs import threshold_pseudo_labels
 from ..modeling.matcher import match_anchors_batched
 from ..modeling.rpn import anchor_validity, find_top_proposals, label_anchors, rpn_losses
 from ..structures import Detections, PaddedInstances
-from .common import float_images, hw_or_canvas
+from .common import float_images, global_blocks, hw_or_canvas, owned_draws, sgd_step, strong_view
 from .fcos_trainer import FCOSTrainState, _ema_update
 
 RCNNTrainState = FCOSTrainState  # the same state and EMA cadence
@@ -174,22 +175,20 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
     sup_strong = sem.USE_SUP_STRONG == "both"
     pseudo_reg_type = box_cfg.BBOX_PSEUDO_REG_LOSS_TYPE
 
-    def _strong(batch, key, images):
-        draws = batch.get(f"strong_{key}")
-        if draws is None:
-            b, h, w = images.shape[:3]
-            draws = draw_strong_params(b, h, w, batch["rng"])
-        return apply_strong(images, draws)
-
-    def _sampling(batch, key, b, num_anchors, num_props, device) -> SamplingDraws:
+    def _sampling(batch, key, blocks, num_anchors, num_props, device) -> SamplingDraws:
+        """This rank's rows of the samplers' draws for the global batch,
+        whose blocks (the streams in the student batch) have `blocks` local
+        rows each."""
+        blocks = global_blocks(blocks)
         draws = batch.get(f"sampling_{key}")
         if draws is None:
             gen = batch["rng"]
+            b = sum(blocks)
             draws = SamplingDraws(
                 torch.rand((b, 2, num_anchors), generator=gen, device=device),
                 torch.rand((b, 2, num_props), generator=gen, device=device),
             )
-        return draws
+        return owned_draws(draws, blocks)
 
     def _pseudo_box_reg(boxes, gt_boxes, bdeltas, bstd, gt_loc_std, is_fg, valid):
         """BBOX_PSEUDO_REG_LOSS_TYPE dispatch (reference fast_rcnn.py:534-566)."""
@@ -201,17 +200,18 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
                                           box_cfg.SMOOTH_L1_BETA)
         raise ValueError(f"Invalid bbox pseudo reg loss type '{pseudo_reg_type}'")
 
-    def _branches(model, images, gt, hw, batch, key, nl):
-        """RPN + ROI losses over one forward of `images`, whose first nl rows
-        are supervised and the rest pseudo-labeled (reference rcnn.py:23-68).
-        Every loss normalises by its own rows' counts, so the two row slices
-        give what two separate branches give. Returns (sup, unsup, counts);
-        a branch with no rows is None."""
+    def _branches(model, images, gt, hw, batch, key, blocks, nl):
+        """RPN + ROI losses over one forward of `images`, the streams of
+        `blocks` rows each in order, whose first nl rows are supervised and
+        the rest pseudo-labeled (reference rcnn.py:23-68). Every loss
+        normalises by its own rows' counts, so the two row slices give what
+        two separate branches give. Returns (sup, unsup, counts); a branch
+        with no rows is None."""
         b = images.shape[0]
         dev = images.device
         pyramid, logits, deltas, anch, pboxes, pmask = parts.proposals(model, images, hw, train=True)
         n_props = pboxes.shape[1] + (gt.boxes.shape[1] if roi_cfg.PROPOSAL_APPEND_GT else 0)
-        draws = _sampling(batch, key, b, anch["anchors"].shape[0], n_props, dev)
+        draws = _sampling(batch, key, blocks, anch["anchors"].shape[0], n_props, dev)
         matched = match_anchors_batched(anch["anchors"], gt.boxes, gt.mask)
         # labeled rows are not confidence-weighted (a no-gt labeled image keeps
         # its all-background BCE); pseudo rows are weighted by teacher score
@@ -269,20 +269,17 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
 
     def _labeled_views(batch, label_q, label_hw):
         """USE_SUP_STRONG "both": strong + weak labeled views; otherwise the
-        weak view only (reference trainer.py:800-803, 861-864)."""
+        weak view only (reference trainer.py:800-803, 861-864). -> (images,
+        gt, hw, the views' row counts)."""
+        bl = batch["images_label_k"].shape[0]
         if not sup_strong:
-            return batch["images_label_k"], batch["gt_label"], label_hw
+            return batch["images_label_k"], batch["gt_label"], label_hw, [bl]
         return (
             torch.cat([label_q, batch["images_label_k"]], 0),
             batch["gt_label"].map(lambda x: torch.cat([x, x], 0)),
             torch.cat([label_hw, label_hw], 0),
+            [bl, bl],
         )
-
-    def _sgd(state, total):
-        state.optimizer.zero_grad()
-        total.backward()
-        state.optimizer.step()
-        state.step += 1
 
     def _detached(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return {k: v.detach() for k, v in d.items()}
@@ -292,11 +289,11 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
         batch = float_images(batch)
         images_l = batch["images_label_k"]
         label_hw = hw_or_canvas(batch, "label_hw", images_l)
-        label_q = _strong(batch, "label", images_l) if sup_strong else None
-        images, gt2, hw2 = _labeled_views(batch, label_q, label_hw)
-        sup, _, counts = _branches(state.student, images, gt2, hw2, batch, "sup", images.shape[0])
+        label_q = strong_view(batch, "label", images_l) if sup_strong else None
+        images, gt2, hw2, blocks = _labeled_views(batch, label_q, label_hw)
+        sup, _, counts = _branches(state.student, images, gt2, hw2, batch, "sup", blocks, images.shape[0])
         total = sum(sup.values())
-        _sgd(state, total)
+        sgd_step(state, total)
         metrics = _detached(sup)
         metrics["total_loss"] = total.detach()
         metrics.update(counts)
@@ -323,20 +320,22 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
             dets = parts.detect(state.teacher, unl_k, unlabel_hw)
             pseudo = threshold_pseudo_labels(dets, sem.BBOX_THRESHOLD, cfg.TPU.MAX_PSEUDO)
 
-        label_q = _strong(batch, "label", batch["images_label_k"]) if sup_strong else None
-        unl_q = _strong(batch, "unlabel", unl_k)
-        images_l, gt2, hw_l2 = _labeled_views(batch, label_q, label_hw)
+        label_q = strong_view(batch, "label", batch["images_label_k"]) if sup_strong else None
+        unl_q = strong_view(batch, "unlabel", unl_k)
+        images_l, gt2, hw_l2, blocks = _labeled_views(batch, label_q, label_hw)
         if unl_q.shape[1:3] == images_l.shape[1:3]:
             # one student forward over labeled strong + weak and unlabeled
             # strong; the branches' losses reduce over row slices
             sup, unsup, counts = _branches(
                 state.student, torch.cat([images_l, unl_q], 0), _cat_instances(gt2, pseudo),
-                torch.cat([hw_l2, unlabel_hw], 0), batch, "sup", images_l.shape[0],
+                torch.cat([hw_l2, unlabel_hw], 0), batch, "sup", blocks + [unl_q.shape[0]], images_l.shape[0],
             )
         else:
             # mixed canvas buckets: one forward per canvas, the same math
-            sup, _, counts = _branches(state.student, images_l, gt2, hw_l2, batch, "sup", images_l.shape[0])
-            _, unsup, counts_u = _branches(state.student, unl_q, pseudo, unlabel_hw, batch, "unsup", 0)
+            sup, _, counts = _branches(state.student, images_l, gt2, hw_l2, batch, "sup", blocks,
+                                       images_l.shape[0])
+            _, unsup, counts_u = _branches(state.student, unl_q, pseudo, unlabel_hw, batch, "unsup",
+                                           [unl_q.shape[0]], 0)
             counts = {k: v + counts_u[k] for k, v in counts.items()}
 
         weighted = dict(sup)
@@ -345,7 +344,7 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
         weighted["loss_rpn_cls_pseudo"] = unsup["loss_rpn_cls"] * sem.UNSUP_LOSS_WEIGHT
         weighted["loss_cls_pseudo"] = unsup["loss_cls"] * sem.UNSUP_LOSS_WEIGHT
         total = sum(weighted.values())
-        _sgd(state, total)
+        sgd_step(state, total)
 
         metrics = _detached(sup)
         metrics.update({k + "_pseudo": v.detach() for k, v in unsup.items()})

@@ -8,14 +8,20 @@ the host stays the loop: iterate the two-stream loader, dispatch burn-in or
 mutual step on the iteration (reference: trainer.py:191/212), log metrics,
 checkpoint periodically, evaluate.
 
-The trainer runs on `device` (default: the first card; there is no CPU
-fallback, a CPU run must ask for it). Per iteration:
+The trainer runs on `device` (default: the rank's card, cuda:LOCAL_RANK;
+there is no CPU fallback, a CPU run must ask for it). Per iteration:
   * the step is dispatched on a batch that is already on the device;
   * while it runs, the next batch is taken from the loader, copied into
     pinned host memory and sent to the device with non_blocking=True on a
     copy stream (the JAX trainer's one-batch device prefetch);
   * all device metrics come back in one transfer of one stacked tensor, the
     iteration's only wait for the device.
+Under data parallelism (parallel/dist.py: one process per card, the batch
+sizes global) each rank loads and steps on its own rows; the stacked
+metrics are summed over the ranks in one all_reduce before the fetch, so
+rank 0 logs the global figures; rank 0 alone logs, writes metrics,
+checkpoints and visualizations; test() splits the test set by rank and the
+evaluator gathers the detections, so every rank returns the same metrics.
 The strong-augmentation (and R-CNN sampling) draws come from one
 torch.Generator on the device, seeded SEED + 17 (the JAX trainer's
 PRNGKey(SEED + 17)), handed to each step as batch["rng"]; its state is
@@ -51,9 +57,10 @@ from ..data import loader as loader_mod
 from ..data.coco import divide_label_unlabel, load_coco_json, load_coco_unlabel_json
 from ..data.loader import TestDataLoader, TwoStreamDataLoader
 from ..evaluation import inference_on_dataset
+from ..parallel import all_reduce_sum, broadcast_module, is_main_process, local_rank, rank, world_size
 from ..solver import build_optimizer
 from ..structures import PaddedInstances
-from ..utils.events import EventStorage, setup_logger
+from ..utils.events import EventStorage, NullEventStorage, setup_logger
 from .fcos_trainer import FCOSTrainState, make_fcos_train_steps
 
 logger = logging.getLogger("ubteacher_tpu_torch")
@@ -103,9 +110,9 @@ def verify_results(cfg, results: Dict[str, float]) -> bool:
 
 
 def resolve_device(device=None) -> torch.device:
-    """None -> the first card. A CUDA device without a card raises: the
-    trainer never carries on on the CPU unless asked to."""
-    device = torch.device("cuda", 0) if device is None else torch.device(device)
+    """None -> the rank's card (cuda:LOCAL_RANK). A CUDA device without a
+    card raises: the trainer never carries on on the CPU unless asked to."""
+    device = torch.device("cuda", local_rank()) if device is None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"no CUDA device for {device}; pass device='cpu' (MODEL.DEVICE cpu) to run on the CPU")
     return device
@@ -169,15 +176,21 @@ def _tensors(v) -> Iterator[torch.Tensor]:
             yield from _tensors(getattr(v, f.name))
 
 
+# metrics every rank computes alike (not shares of a global figure)
+REPLICATED_METRICS = ("ema_rate_1000x",)
+
+
 def host_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """Step metrics -> floats, with every device scalar in one stacked
-    float64 tensor fetched by one copy (the step's only sync); values the
-    step computed on the host (ema_rate_1000x) are read directly."""
-    on_device = [k for k, v in metrics.items() if v.device.type != "cpu"]
+    """Step metrics -> floats of the global batch. The losses (shares) and
+    counts go into one stacked float64 tensor, summed over the ranks by one
+    all_reduce and fetched by one copy (the step's only sync); the
+    replicated ones (ema_rate_1000x, computed on the host) are read
+    directly."""
+    summed = [k for k in metrics if k not in REPLICATED_METRICS]
     fetched: Dict[str, float] = {}
-    if on_device:
-        values = torch.stack([metrics[k].reshape(()).double() for k in on_device]).cpu()
-        fetched = dict(zip(on_device, values.tolist()))
+    if summed:
+        values = all_reduce_sum(torch.stack([metrics[k].reshape(()).double() for k in summed])).cpu()
+        fetched = dict(zip(summed, values.tolist()))
     return {k: fetched[k] if k in fetched else float(v) for k, v in metrics.items()}
 
 
@@ -190,11 +203,13 @@ class UBTeacherTrainer:
         $COCO_ROOT. image_loader: file name -> (H, W, 3) uint8 BGR, in place
         of reading files with cv2. device: default the first card."""
         self.device = resolve_device(device)
-        # one process on one device until the port has data parallelism
-        cfg = auto_scale_workers(cfg, 1)
+        cfg = auto_scale_workers(cfg, world_size())
         self.cfg = cfg
-        setup_logger(cfg.OUTPUT_DIR)
-        self.storage = EventStorage(cfg.OUTPUT_DIR)
+        if is_main_process():
+            setup_logger(cfg.OUTPUT_DIR)
+            self.storage = EventStorage(cfg.OUTPUT_DIR)
+        else:
+            self.storage = NullEventStorage()
 
         if datasets is None:
             datasets = self._load_datasets(cfg)
@@ -264,22 +279,25 @@ class UBTeacherTrainer:
         self.generator.set_state(ckpt["generator"])
 
     def resume_or_load(self, resume: bool = True) -> None:
-        """resume: restore the newest checkpoint under OUTPUT_DIR, if any.
-        Otherwise a MODEL.WEIGHTS .pth/.pt is loaded as a reference
-        checkpoint. The loader restarts from its seed either way, as the JAX
-        trainer's does."""
+        """resume: restore the newest checkpoint under OUTPUT_DIR, if any
+        (every rank reads the same file). Otherwise a MODEL.WEIGHTS .pth/.pt
+        is loaded as a reference checkpoint. The loader restarts from its
+        seed either way, as the JAX trainer's does. Then both models are
+        rank 0's on every rank."""
         ckpt = self.checkpointer.resume_or_load(resume)
         if ckpt is not None:
             self._restore(ckpt)
         self.start_iter = self.state.step
         if resume and self.start_iter > 0:
             logger.info("resumed at iteration %d", self.start_iter)
-            return
-        w = self.cfg.MODEL.WEIGHTS
-        if w and w.endswith((".pth", ".pt")):
-            if not os.path.isfile(w):
-                raise FileNotFoundError(f"MODEL.WEIGHTS not found: {w}")
-            self._load_torch_checkpoint(w)
+        else:
+            w = self.cfg.MODEL.WEIGHTS
+            if w and w.endswith((".pth", ".pt")):
+                if not os.path.isfile(w):
+                    raise FileNotFoundError(f"MODEL.WEIGHTS not found: {w}")
+                self._load_torch_checkpoint(w)
+        broadcast_module(self.state.student)
+        broadcast_module(self.state.teacher)
 
     def _load_torch_checkpoint(self, path: str) -> None:
         """MODEL.WEIGHTS pointing at a reference checkpoint: an
@@ -356,7 +374,7 @@ class UBTeacherTrainer:
                 scalars["data_time"] = data_time
                 scalars["corrupt_rows_total"] = float(loader_mod.DECODE_STATS["corrupt"])
                 self.storage.put_scalars(**scalars)
-                if cfg.VIS_PERIOD and (it + 1) % cfg.VIS_PERIOD == 0:
+                if cfg.VIS_PERIOD and (it + 1) % cfg.VIS_PERIOD == 0 and is_main_process():
                     self._save_visualization(it + 1, batch, mutual=it >= burn_up)
                 self.storage.step()
                 nxt = it + 1
@@ -458,9 +476,13 @@ class UBTeacherTrainer:
                     results.get("AP", float("nan")), results_s.get("AP", float("nan")))
 
     def test(self, model: str = "teacher") -> Dict[str, float]:
+        """COCO metrics of the teacher or the student on the test set. Each
+        rank infers its contiguous share (np.array_split by rank, the
+        reference's InferenceSampler) and every rank scores all of it."""
         module = self.state.teacher if model == "teacher" else self.state.student
         test_dicts = self.datasets["test"]
-        loader = TestDataLoader(self.cfg, test_dicts, batch_size=self.cfg.TPU.EVAL_BATCH,
+        shard = [test_dicts[i] for i in np.array_split(np.arange(len(test_dicts)), world_size())[rank()]]
+        loader = TestDataLoader(self.cfg, shard, batch_size=self.cfg.TPU.EVAL_BATCH,
                                 image_loader=self._image_loader)
         return inference_on_dataset(
             self.cfg, module, loader, test_dicts,

@@ -7,9 +7,10 @@ warm-up-aware timing, detections rescaled to original image coordinates and
 fed to the numpy COCO evaluator. The nms_method (NMS_CRITERIA_TEST) kwarg is
 an FCOS-only feature, matching the reference.
 
-Single process only: the JAX evaluator gathers every host's detection rows
-(parallel.allgather_host_rows) so that each host scores the whole test set;
-the port's counterpart waits for data parallelism (ROADMAP Queue A item 11).
+Under data parallelism each rank infers its share of the test set and the
+detection (and proposal) rows of all ranks are gathered before scoring
+(parallel.allgather_host_rows, as the JAX evaluator does), so every rank
+returns the same metrics of the whole set.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..modeling.fcos_outputs import (
     fcos_loss_config,
     level_feature_sizes,
 )
+from ..parallel import allgather_host_rows
 from .coco_eval import COCOBboxEvaluator
 
 
@@ -90,6 +92,9 @@ def inference_on_dataset(
     det_rows, prop_rows, total_time, n_images = collect_detections(
         model, data_loader, by_id, infer, proposal_fn
     )
+    det_rows = allgather_host_rows(det_rows)
+    if proposal_fn is not None:
+        prop_rows = allgather_host_rows(prop_rows)
     results = evaluate_detection_rows(
         det_rows, dataset_dicts, num_classes,
         prop_rows if proposal_fn is not None else None,

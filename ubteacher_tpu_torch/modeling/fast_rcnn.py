@@ -4,7 +4,8 @@ ubteacher_tpu.modeling.fast_rcnn; reference roi_heads/fast_rcnn.py:715-1225
 and roi_heads.py:141-270).
 
 Everything is masked and fixed-shape: positives are weighted, never
-gathered.
+gathered. The losses normalise by counts over the global batch (the rule of
+parallel/dist.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from torch import nn
 from ..ops import losses as L
 from ..ops.boxes import clip_boxes, matched_iou
 from ..ops import nms as nms_ops
+from ..parallel import all_reduce_sum
 from ..structures import Detections, PaddedInstances
 from .box_regression import Box2BoxXYXYTransform
 from .matcher import NEG_INF, match, match_quality, topk_stable
@@ -167,7 +169,7 @@ def focal_ce_loss(
     if confid is not None:
         loss = loss * confid
     loss = loss * valid
-    return loss.sum() / torch.clamp(valid.sum().float(), min=1.0)
+    return loss.sum() / torch.clamp(all_reduce_sum(valid.sum().float()), min=1.0)
 
 
 def cross_entropy_loss(scores: torch.Tensor, gt_classes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -175,7 +177,7 @@ def cross_entropy_loss(scores: torch.Tensor, gt_classes: torch.Tensor, valid: to
     (MODEL.ROI_HEADS.LOSS 'CrossEntropy')."""
     logp = F.log_softmax(scores, dim=-1)
     ce = -torch.gather(logp, 1, gt_classes[:, None])[:, 0]
-    return (ce * valid).sum() / torch.clamp(valid.sum().float(), min=1.0)
+    return (ce * valid).sum() / torch.clamp(all_reduce_sum(valid.sum().float()), min=1.0)
 
 
 def box_reg_loss_smooth_l1(prop_boxes, gt_boxes, pred_deltas, is_fg, valid, box2box,
@@ -185,7 +187,7 @@ def box_reg_loss_smooth_l1(prop_boxes, gt_boxes, pred_deltas, is_fg, valid, box2
     fg = is_fg.float()
     gt_deltas = box2box.get_deltas(prop_boxes, gt_boxes)
     l1 = (L.smooth_l1(pred_deltas, gt_deltas, smooth_l1_beta).sum(-1) * fg).sum()
-    return l1 / torch.clamp(valid.sum().float(), min=1.0)
+    return l1 / torch.clamp(all_reduce_sum(valid.sum().float()), min=1.0)
 
 
 def box_reg_loss_nll(prop_boxes, gt_boxes, pred_deltas, pred_deltas_std, is_fg, valid,
@@ -205,7 +207,7 @@ def box_reg_loss_nll(prop_boxes, gt_boxes, pred_deltas, pred_deltas_std, is_fg, 
     second = 0.5 * torch.log(sigma_sq)
     per = (first + second).sum(-1) + 2.0 * math.log(2.0 * math.pi)
     nll = (per * iou_w * fg).sum()
-    return (l1 + nll_weight * nll) / torch.clamp(valid.sum().float(), min=1.0)
+    return (l1 + nll_weight * nll) / torch.clamp(all_reduce_sum(valid.sum().float()), min=1.0)
 
 
 def box_reg_pseudo_loss_tsbetter(prop_boxes, gt_boxes, pred_deltas, pred_deltas_std, gt_loc_std, is_fg,
@@ -219,7 +221,7 @@ def box_reg_pseudo_loss_tsbetter(prop_boxes, gt_boxes, pred_deltas, pred_deltas_
     pred_conf = 1.0 - torch.sigmoid(pred_deltas_std)
     select = ((gt_conf > pred_conf + ts_better) & (gt_conf > t_cert) & is_fg[:, None]).float()
     l1 = (torch.abs(pred_deltas - gt_deltas) * select).sum()
-    return l1 / torch.clamp(valid.sum().float(), min=1.0)
+    return l1 / torch.clamp(all_reduce_sum(valid.sum().float()), min=1.0)
 
 
 # --------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from ..ops import losses as L
 from ..ops.kernels.focal_triton import sigmoid_focal_loss
 from ..ops.kernels.giou_cuda import giou_loss
 from ..ops.nms import batched_nms_keep, top_k_detections
+from ..parallel import all_reduce_sum
 from ..structures import Detections, PaddedInstances
 
 INF = 100000000.0
@@ -251,10 +252,12 @@ def fcos_supervised_losses(
     """Supervised losses (reference fcos_outputs.py:307-444): focal cls over
     all kept locations / num positives, centerness BCE, IoU-family regression
     weighted by ctrness targets / loss_denorm, and the optional KL/NLL term,
-    with KLLOSS_WEIGHT applied twice as the reference does."""
+    with KLLOSS_WEIGHT applied twice as the reference does. The normalizers
+    are counts over the global batch (the rule of parallel/dist.py; the JAX
+    step's batch is global under pjit)."""
     keep_f = targets.keep.float()
     pos_f = targets.pos.float()
-    num_pos = pos_f.sum()
+    num_pos = all_reduce_sum(pos_f.sum())
     num_pos_avg = torch.clamp(num_pos, min=1.0)
 
     cls_all = _focal_sum(dense.logits, targets.labels, cfg_fcos)
@@ -270,7 +273,7 @@ def fcos_supervised_losses(
     else:  # 'iou'
         ctr_targets = L.compute_iou_targets(reg_pred.detach(), safe_reg_targets)
     ctr_targets = ctr_targets * pos_f
-    loss_denorm = torch.clamp(ctr_targets.sum(), min=1e-6)
+    loss_denorm = torch.clamp(all_reduce_sum(ctr_targets.sum()), min=1e-6)
 
     iou_targets = L.compute_iou_targets(reg_pred.detach(), safe_reg_targets)
 
@@ -321,10 +324,13 @@ def fcos_pseudo_losses(
     cls + centerness BCE from the `cls` pseudo set; regression from the
     `reg` pseudo set, either the Listen2Student uncertainty-gated L1
     (`ts_locvar_better_nms_nll_l1`, the shipped recipe) or the KL/NLL pseudo
-    regression loss (any other value)."""
+    regression loss (any other value). Normalizers, and the branches taken on
+    counts, are global as in fcos_supervised_losses; teacher_better_student
+    is this rank's count of selected edges."""
     pos_f = cls_targets.pos.float()
     keep_f = cls_targets.keep.float()
-    num_pos_avg = torch.clamp(pos_f.sum(), min=1.0)
+    num_pos = all_reduce_sum(pos_f.sum())
+    num_pos_avg = torch.clamp(num_pos, min=1.0)
 
     cls_all = _focal_sum(dense.logits, cls_targets.labels, cfg_fcos)
     class_loss = (cls_all * keep_f).sum() / num_pos_avg
@@ -332,7 +338,7 @@ def fcos_pseudo_losses(
     safe_cls_reg = torch.where(cls_targets.pos[..., None], cls_targets.reg_targets, 1.0)
     ctr_t = L.compute_ctrness_targets(safe_cls_reg) * pos_f
     ctr_loss = (L.bce_with_logits(dense.ctrness, ctr_t) * pos_f).sum() / num_pos_avg
-    ctr_loss = torch.where(pos_f.sum() > 0, ctr_loss, ctr_loss.new_zeros(()))
+    ctr_loss = torch.where(num_pos > 0, ctr_loss, ctr_loss.new_zeros(()))
     if cfg_fcos.get("unify_ctrcls", False):
         ctr_loss = ctr_loss * 0.0
 
@@ -352,10 +358,11 @@ def fcos_pseudo_losses(
         )
         select_f = select.float()
         n_select = select_f.sum()
+        n_select_all = all_reduce_sum(n_select)
         # F.smooth_l1_loss(beta=0) == L1, 'mean' over the selected elements
         l1 = torch.abs(reg_pred - reg_targets.reg_targets) * select_f
         reg_loss = torch.where(
-            n_select > 0, l1.sum() / torch.clamp(n_select, min=1.0), l1.new_zeros(())
+            n_select_all > 0, l1.sum() / torch.clamp(n_select_all, min=1.0), l1.new_zeros(())
         )
     else:
         # KL/NLL pseudo regression with the weight applied ONCE
@@ -363,7 +370,7 @@ def fcos_pseudo_losses(
         w = cfg_fcos["kl_loss_weight"]
         safe_reg = torch.where(reg_pos[..., None], reg_targets.reg_targets, 1.0)
         ctr_reg = L.compute_ctrness_targets(safe_reg) * reg_pos_f
-        loss_denorm = torch.clamp(ctr_reg.sum(), min=1e-6)
+        loss_denorm = torch.clamp(all_reduce_sum(ctr_reg.sum()), min=1e-6)
         iou_t = L.compute_iou_targets(reg_pred.detach(), safe_reg)
         if cfg_fcos["kl_loss_type"] == "nlloss":
             unc = L.nl_loss(reg_pred, dense.reg_std, safe_reg, iou_weight=iou_t, valid=reg_pos_f)
@@ -373,7 +380,7 @@ def fcos_pseudo_losses(
                             valid=reg_pos_f)
         else:
             raise ValueError(cfg_fcos["kl_loss_type"])
-        reg_loss = torch.where(reg_pos_f.sum() > 0, w * unc, unc.new_zeros(()))
+        reg_loss = torch.where(all_reduce_sum(reg_pos_f.sum()) > 0, w * unc, unc.new_zeros(()))
         n_select = reg_loss.new_zeros(())
 
     return {

@@ -20,6 +20,7 @@ from ..ops import losses as L
 from ..ops.boxes import clip_boxes
 from ..ops.nms import nms_keep
 from ..ops.row_gather import take_rows
+from ..parallel import world_size
 from ..structures import PaddedInstances
 from .box_regression import Box2BoxTransform
 from .matcher import random_priority_topk, topk_stable
@@ -119,7 +120,8 @@ def rpn_losses(
     smooth_l1_beta: float = 0.0,
 ) -> Dict[str, torch.Tensor]:
     """Sum BCE + smooth-L1 over the sampled anchors, normalised by
-    batch_size_per_image * num_images (reference rpn.py:153-225).
+    batch_size_per_image * num_images of the global batch (reference
+    rpn.py:153-225; every rank holds the same number of rows).
     pred_logits (B, L, A), pred_deltas (B, L, A, 4). The predictions are
     gathered at the sampled anchors' locations with take_rows (backward: the
     row-scatter kernel) and their cell anchor picked by a one-hot."""
@@ -142,7 +144,7 @@ def rpn_losses(
     obj = L.bce_with_logits(logits_s, pos.float()) * sampled["confid"]
     objectness_loss = (obj * valid).sum()
 
-    normalizer = batch_size_per_image * num_images
+    normalizer = batch_size_per_image * num_images * world_size()
     return {
         "loss_rpn_cls": objectness_loss / normalizer,
         "loss_rpn_loc": localization_loss / normalizer,

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from ..parallel import all_reduce_sum
 from .boxes import ltrb_iou
 
 
@@ -202,10 +203,9 @@ def kl_loss(
         return (loss * weight).sum() / loss_denorm
     if method == "sum":
         return loss.sum()
-    if method == "mean":
-        if valid is None:
-            return loss.mean()
-        return loss.sum() / torch.clamp(valid.sum(), min=1.0)
+    if method == "mean":  # over the (valid) instances of the global batch
+        count = loss.new_full((), float(loss.numel())) if valid is None else valid.sum()
+        return loss.sum() / torch.clamp(all_reduce_sum(count), min=1.0)
     raise ValueError(f"No defined regression loss method: {method}")
 
 
@@ -220,7 +220,8 @@ def nl_loss(
     valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Gaussian NLL with sigma = sigmoid(pred_std), IoU-weighted mean over
-    (valid) instances (reference layers/kl_loss.py:75-105)."""
+    the (valid) instances of the global batch (reference
+    layers/kl_loss.py:75-105)."""
     sigma = torch.sigmoid(pred_std)
     sigma_sq = torch.clamp(sigma * sigma, min=1e-12)
     first = (target - pred) ** 2 / (2.0 * sigma_sq)
@@ -228,8 +229,10 @@ def nl_loss(
     per_inst = (first + second).sum(-1) + _TWO_LOG_2PI
     per_inst = per_inst * iou_weight
     if valid is None:
-        return per_inst.mean()
-    return (per_inst * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        count = per_inst.new_full((), float(per_inst.numel()))
+    else:
+        per_inst, count = per_inst * valid, valid.sum()
+    return per_inst.sum() / torch.clamp(all_reduce_sum(count), min=1.0)
 
 
 def compute_ctrness_targets(reg_targets: torch.Tensor) -> torch.Tensor:

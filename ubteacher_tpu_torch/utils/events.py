@@ -87,6 +87,23 @@ class EventStorage:
             self._tb = None
 
 
+class NullEventStorage:
+    """The storage of every rank but the first: metrics, logs and checkpoints
+    are rank 0's (reference: comm.is_main_process gating, trainer.py:527)."""
+
+    iter = 0
+    log_period = 20
+
+    def put_scalars(self, **scalars) -> None:
+        pass
+
+    def step(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def setup_logger(output_dir: str | None = None) -> logging.Logger:
     """The port's logger: one console handler, and a log.txt file handler
     per output directory (a later call with a new directory still adds its
