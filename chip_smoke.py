@@ -8,6 +8,7 @@
     python3 chip_smoke.py --ab-stem        # TPU.STEM_MODE conv against pallas on both steps
     python3 chip_smoke.py --mfu            # the FLOP count and MFU of both mutual steps
     python3 chip_smoke.py --data-parallel  # phase 13 alone
+    python3 chip_smoke.py --tools          # phase 14 alone
 
 1. Setup: prints the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and builds the hand-written kernels from this checkout's
@@ -136,10 +137,27 @@
    phase 4's FCOS slice steps on that rank, timed beside phase 4's.
    A rank that dies fails the launch, and a collective waits at most
    DP_TIMEOUT seconds for a silent peer.
+14. Tools (ubteacher_tpu_torch/tools/, each through its entry point on the
+   card): microbench_rcnn at its defaults (the R-CNN stages alone, beside
+   the kernel phase's ROIAlign row), then each ROIAlign forward call of a
+   full-width R-CNN mutual step recorded and timed alone on its own inputs;
+   bench_loader --once at 8 threads alone and beside the FCOS mutual step
+   (--concurrent-step); a 60-iteration soak of the FCOS recipe (8 + 8, its
+   canvases in both orientations) whose child is killed with SIGKILL at the
+   checkpoint at 40 and resumed here: the restored state's hash must equal
+   the child's bit for bit and the run must reach MAX_ITER; the FCOS
+   mutual step at 768x1344 and 1024x1344 fed to recipe_mix; both detectors
+   exported (torch.export, 800x1344, batch 8, fused stem), loaded in a fresh
+   process that imports torch and ubteacher_tpu_torch.ops only (no config
+   or model code), whose detections must equal eager inference's on the
+   same weights and images (masks and classes equal, boxes within 5e-3 px,
+   scores within 1e-5; bitwise is reported) and which must launch the CUDA
+   NMS and stem kernels, and for R-CNN the ROIAlign forward.
 
 The kernels' launch counts in the JSON line are the sums over the slice
-phases (4, 6, 8, 9), the train loops (10, 11), the lift (12) and every
-rank of the data-parallel phase (13).
+phases (4, 6, 8, 9), the train loops (10, 11), the lift (12), every
+rank of the data-parallel phase (13) and the tools' runs in this process
+and the serving processes (14; the soak's killed child is not counted).
 
 The flags run one tool after the setup and print no result line:
 --profile-rcnn (--profile-fcos) runs ubteacher_tpu_torch/tools/profile_step.py
@@ -149,7 +167,7 @@ PROFILED_STEPS mutual steps under torch.profiler: device time per step in
 all, by group and by kernel, and the kernel launches per step. --lift runs
 phase 12 and then the same ablation for Faster R-CNN (recorded, no pass
 mark). --ab-stem runs tools/ab_stem.py, --mfu tools/mfu.py (its JSON goes to
-ubteacher_tpu_torch/tools/flops_mutual.json), --data-parallel phase 13.
+ubteacher_tpu_torch/tools/flops_mutual.json), --data-parallel phase 13, --tools phase 14.
 
 Prints the kernels' JSON line second to last and
 {"ok": true, "device": {...}} last; exits nonzero, with no result line, on
@@ -2568,6 +2586,290 @@ def dp_phase(device):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 14: the tools
+# --------------------------------------------------------------------------
+
+TOOLS_DIR = os.path.join(ROOT, "ubteacher_tpu_torch", "_build", "chip_smoke_tools")
+# the kernel phase's device ms a call, by kernel (for the tools phase's log)
+KERNEL_MS = {}
+# the R-CNN mutual step's ROIAlign forward in the step profile of PERF.md
+# section 5: 9.28 ms over 2 launches (tools/profile_step.py on an NVIDIA H100
+# 80GB HBM3 at 700 W)
+ROI_FWD_IN_STEP_MS = 9.28
+LOADER_THREADS = 8
+SOAK_ARGS = ["--max-iter", "60", "--kill-at", "40", "--burnin", "20", "--checkpoint-period", "20",
+             "--eval-period", "30", "--rss-period", "2", "--timeout", "300"]
+MIX_CANVASES = ((768, 1344), (1024, 1344))
+MIX_STEPS = 3
+EXPORT_CALLS = 5
+# the port's packages that configure and build a model: a serving process
+# loads none of them
+MODEL_CODE = ("config", "modeling", "engine", "evaluation", "data", "checkpoint", "solver", "tools")
+# the serving process: torch and the port's ops, nothing else of the port
+SERVE = r"""
+import json, sys, statistics
+import torch
+import ubteacher_tpu_torch.ops
+from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+program = torch.export.load(sys.argv[1]).module()
+inputs = torch.load(sys.argv[2], map_location="cuda:0")
+args = (inputs["params"], inputs["images"], inputs["hw"])
+reset_launch_counts()
+dets = program(*args)
+torch.cuda.synchronize()
+counts = launch_counts()
+ms = []
+for _ in range(int(sys.argv[4])):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    program(*args)
+    end.record()
+    end.synchronize()
+    ms.append(start.elapsed_time(end))
+port = sorted(m for m in sys.modules if m.startswith("ubteacher_tpu_torch"))
+torch.save({"dets": {k: v.cpu() for k, v in dets.items()}, "counts": counts, "ms": statistics.median(ms),
+            "modules": port}, sys.argv[3])
+"""
+
+
+def microbench_part(device, counts) -> None:
+    """tools/microbench_rcnn.py at its defaults: the R-CNN stages alone."""
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ubteacher_tpu_torch.tools import microbench_rcnn
+
+    reset_launch_counts()
+    out = microbench_rcnn.main([])
+    got = launch_counts()
+    add_counts(counts, got)
+    missing = [k for k in ("matcher", "nms", "roi_align_fwd", "roi_align_bwd") if not got[k]]
+    if missing:
+        raise AssertionError(f"microbench_rcnn: kernels not launched: {missing}")
+    fwd = next(v for k, v in out["rows"].items() if k.startswith("roi_align fwd ("))
+    standalone = KERNEL_MS.get("roi_align_fwd")
+    log(f"microbench_rcnn: ROIAlign forward {fwd['median_ms']:.4f} ms (min {fwd['min_ms']:.4f}) over "
+        f"{out['batch']} x 512 rois; the kernel phase's standalone call over {RCNN_STUDENT} x {RCNN_ROIS} rois "
+        + (f"{standalone:.4f} ms" if standalone is not None else "not measured in this run")
+        + f"; in the R-CNN step's profile (PERF.md section 5) {ROI_FWD_IN_STEP_MS} ms over 2 launches; launches "
+        f"{got}")
+    bad = [k for k, v in out["rows"].items() if not (math.isfinite(v["median_ms"]) and v["median_ms"] > 0)]
+    if bad:
+        raise AssertionError(f"microbench_rcnn: rows without a time: {bad}")
+    roi_fwd_in_step(device, counts)
+
+
+def roi_fwd_in_step(device, counts) -> None:
+    """The ROIAlign forward calls of one full-width R-CNN mutual step (8 + 8
+    at 768x1344, phase 6's seeded setup), recorded with their inputs and
+    each timed alone on them: what the step's profile row of the forward is
+    made of."""
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, roi_align_cuda
+
+    _, (burnin, mutual), state, batch = common.step_setup(True, device)
+    state, _ = burnin(state, batch)
+    state, _ = mutual(state, batch)  # the first mutual step: not recorded
+    torch.cuda.synchronize()
+    calls = []
+    real = roi_align_cuda.roi_align_forward_kernel
+
+    def record(feats, boxes, level, *args):
+        calls.append(([f.clone() for f in feats], boxes.clone(), level.clone(), args))
+        return real(feats, boxes, level, *args)
+
+    reset_launch_counts()
+    roi_align_cuda.roi_align_forward_kernel = record
+    try:
+        state, _ = mutual(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        roi_align_cuda.roi_align_forward_kernel = real
+    add_counts(counts, launch_counts())
+    total = 0.0
+    for i, (feats, boxes, level, args) in enumerate(calls):
+        ms = median_ms(lambda: real(feats, boxes, level, *args))
+        total += ms
+        side = ((boxes[:, 2] - boxes[:, 0]).clamp_min(0) * (boxes[:, 3] - boxes[:, 1]).clamp_min(0)).sqrt()
+        per_level = torch.bincount(level.long(), minlength=len(feats)).tolist()
+        log(f"ROIAlign forward in the R-CNN mutual step, call {i}: {boxes.shape[0]} rois of {feats[0].shape[0]} "
+            f"images ({feats[0].dtype}), per level {per_level}, sqrt(area) median {side.median().item():.1f} px, "
+            f"max {side.max().item():.1f}; alone {ms:.4f} ms")
+    log(f"ROIAlign forward in the R-CNN mutual step: {len(calls)} calls, {total:.4f} ms alone on the step's own "
+        f"inputs; card {gpu_name_and_power()}")
+    del state, batch, calls
+    torch.cuda.empty_cache()
+
+
+def loader_part(device, counts) -> None:
+    """tools/bench_loader.py --once at 8 threads, then one --concurrent-step
+    window (the FCOS mutual step looping on the card beside the loader)."""
+    import shutil
+
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ubteacher_tpu_torch.tools import bench_loader
+
+    work = os.path.join(TOOLS_DIR, "loader")
+    shutil.rmtree(work, ignore_errors=True)
+    alone = bench_loader.main(["--once", "--threads", str(LOADER_THREADS), "--images", "200", "--workdir", work])
+    reset_launch_counts()
+    during = bench_loader.main(["--once", "--threads", str(LOADER_THREADS), "--images", "200", "--workdir", work,
+                                "--concurrent-step"])
+    got = launch_counts()
+    add_counts(counts, got)
+    missing = [k for k in FCOS_KERNELS if not got[k]]
+    if missing or during[0]["step_s"] <= 0 or alone[0]["img_s"] <= 0 or alone[0]["corrupt"]:
+        raise AssertionError(f"bench_loader: alone {alone}, during {during}, kernels not launched {missing}")
+    log(f"bench_loader: {alone[0]['img_s']} img/s alone at {LOADER_THREADS} threads, {during[0]['loader_img_s']} "
+        f"img/s beside the FCOS mutual step at {during[0]['step_s']} steps/s "
+        f"({during[0]['device_img_s_during']} img/s); launches {got}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def soak_part(device, counts) -> None:
+    """A short tools/soak.py at the recipe's geometry: the child trains, is
+    killed at a checkpoint, and this process resumes it bitwise to the end."""
+    import shutil
+
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ubteacher_tpu_torch.tools import soak
+
+    work = os.path.join(TOOLS_DIR, "soak")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()  # the child shares the card
+    reset_launch_counts()
+    summary = soak.main(SOAK_ARGS + ["--workdir", work])
+    got = launch_counts()
+    add_counts(counts, got)
+    for row in summary["first_use"]:
+        log(f"soak first use: {row}")
+    log("soak: " + json.dumps({k: v for k, v in summary.items() if k != "first_use"}))
+    if not (summary["resume_hash_bitwise_equal"] and summary["reached_max_iter"] and summary["final_losses_finite"]):
+        raise AssertionError(f"soak: hash equal {summary['resume_hash_bitwise_equal']}, reached MAX_ITER "
+                             f"{summary['reached_max_iter']}, losses finite {summary['final_losses_finite']}")
+    missing = [k for k in FCOS_KERNELS if not got[k]]
+    if missing:
+        raise AssertionError(f"soak: kernels not launched in the resumed run: {missing}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def recipe_part(device, counts) -> None:
+    """The FCOS mutual step at each bucket canvas (8 + 8), then
+    tools/recipe_mix.py fed those ms."""
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ubteacher_tpu_torch.tools import recipe_mix
+
+    argv = []
+    for canvas in MIX_CANVASES:
+        _, (burnin, mutual), state, batch = common.step_setup(False, device, canvas=canvas)
+        state, _ = burnin(state, batch)
+        state, _ = mutual(state, batch)  # the canvas's first mutual step: not timed
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ms = []
+        for _ in range(MIX_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = mutual(state, batch)
+            float(metrics["total_loss"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        add_counts(counts, launch_counts())
+        log(f"recipe_mix: FCOS mutual step at {canvas[0]}x{canvas[1]}: {[round(x, 1) for x in ms]} ms")
+        argv += ["--ms", str(canvas[0]), str(canvas[1]), str(statistics.median(ms))]
+        del state, batch
+        torch.cuda.empty_cache()
+    out = recipe_mix.main(argv)
+    if "effective_img_s_chip" not in out:
+        raise AssertionError(f"recipe_mix: {out}")
+    log(f"recipe_mix: {out}; card {gpu_name_and_power()}")
+
+
+def export_part(device, counts) -> None:
+    """tools/export_inference.py for both detectors at 800x1344, batch 8,
+    the fused stem: the artifact loaded in a fresh process that imports
+    torch and the port's ops only; its detections against the eager
+    inference function's on the same weights and images, and the CUDA
+    kernels it launched."""
+    import torch
+
+    from ubteacher_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ubteacher_tpu_torch.tools import export_inference as export
+
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    gen = torch.Generator(device=device).manual_seed(5)
+    h, w = EVAL_CANVAS
+    images = (torch.randn((EVAL_BATCH, h, w, 3), generator=gen, device=device) * 45 + 110).clamp(0, 255)
+    hw = torch.tensor([[h, w]] * (EVAL_BATCH // 2) + [[600, 900]] * (EVAL_BATCH // 2), dtype=torch.float32,
+                      device=device)
+    for rcnn in (False, True):
+        name = "rcnn" if rcnn else "fcos"
+        cfg = load_cfg(["TPU.STEM_MODE", "pallas"], RCNN_CFG if rcnn else CFG)
+        path = os.path.join(TOOLS_DIR, f"{name}_infer.pt2")
+        t0 = time.perf_counter()
+        size = export.save(export.export_program(cfg, rcnn, EVAL_BATCH, EVAL_CANVAS, device), path)
+        t_export = time.perf_counter() - t0
+        model = (build_rcnn_model(cfg, device, 0, RCNN_SLICE_CLS_BIAS) if rcnn
+                 else build_fcos_model(cfg, device, 0, SLICE_CLS_BIAS)).eval()
+        infer = export.inference_fn(cfg, rcnn)
+        reset_launch_counts()
+        with torch.inference_mode():
+            ref = vars(infer(model, images, hw))
+            torch.cuda.synchronize()
+            add_counts(counts, launch_counts())
+            eager_ms = median_ms(lambda: infer(model, images, hw), runs=EXPORT_CALLS, sample_ms=0.0)
+        inputs = os.path.join(TOOLS_DIR, f"{name}_inputs.pt")
+        torch.save({"params": dict(model.state_dict()), "images": images, "hw": hw}, inputs)
+        result = os.path.join(TOOLS_DIR, f"{name}_served.pt")
+        proc = subprocess.run([sys.executable, "-c", SERVE, path, inputs, result, str(EXPORT_CALLS)],
+                              cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"export {name}: the serving process failed:\n{proc.stderr[-4000:]}")
+        served = torch.load(result, weights_only=False)
+        add_counts(counts, served["counts"])
+        extra = [m for m in served["modules"] if m.split(".")[1:2] and m.split(".")[1] in MODEL_CODE]
+        bitwise = {k: same_bytes(v.cpu(), served["dets"][k]) for k, v in ref.items()}
+        errs = {k: float((v.cpu().double() - served["dets"][k].double()).abs().max())
+                for k, v in ref.items() if v.is_floating_point() and v.numel()}
+        need = ("nms", "stem") + (("roi_align_fwd",) if rcnn else ())
+        log(f"export {name}: {size} bytes, traced in {t_export:.1f} s; served call {served['ms']:.3f} ms against "
+            f"eager {eager_ms:.3f} ms (median of {EXPORT_CALLS}); bitwise {bitwise}; max abs diff {errs}; "
+            f"served launches {served['counts']}; modules of the port loaded to serve {served['modules']}")
+        mask = ref["mask"].cpu()
+        if (not torch.equal(mask, served["dets"]["mask"]) or not mask.any()
+                or not torch.equal(ref["classes"].cpu()[mask], served["dets"]["classes"][mask])
+                or errs.get("boxes", 0.0) > 5e-3 or errs.get("scores", 0.0) > 1e-5):
+            raise AssertionError(f"export {name}: served detections differ from eager: {bitwise}, {errs}")
+        missing = [k for k in need if not served["counts"].get(k)]
+        if missing or extra:
+            raise AssertionError(f"export {name}: kernels not launched {missing}; model-building modules "
+                                 f"loaded to serve: {extra}")
+        for p in (path, inputs, result):
+            os.remove(p)
+        del model
+        torch.cuda.empty_cache()
+
+
+def tools_phase(device):
+    """Phase 14: the five tools through their entry points; the launch
+    counts of their main-path runs."""
+    import shutil
+
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    counts = {}
+    for part in (microbench_part, loader_part, soak_part, recipe_part, export_part):
+        t0 = time.perf_counter()
+        part(device, counts)
+        log(f"tools {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    return counts
+
+
 # the tools run on their own: python3 chip_smoke.py <flag>; each prints no result line
 TOOLS = {
     "--profile-rcnn": lambda device: profile_step.run(True, device),
@@ -2576,6 +2878,7 @@ TOOLS = {
     "--ab-stem": lambda device: ab_stem.run(device),
     "--mfu": lambda device: mfu.main([]),
     "--data-parallel": dp_phase,
+    "--tools": tools_phase,
 }
 
 
@@ -2605,7 +2908,8 @@ def main() -> int:
               ("rcnn reference", rcnn_reference_phase), ("rcnn slice", rcnn_slice_phase),
               ("eval reference", eval_reference_phase), ("fcos eval slice", fcos_eval_slice_phase),
               ("rcnn eval slice", rcnn_eval_slice_phase), ("fcos train loop", fcos_loop_phase),
-              ("rcnn train loop", rcnn_loop_phase), ("fcos lift", lift_phase), ("data parallel", dp_phase))
+              ("rcnn train loop", rcnn_loop_phase), ("fcos lift", lift_phase), ("data parallel", dp_phase),
+              ("tools", tools_phase))
     for name, phase in phases:
         t0 = time.perf_counter()
         out = phase(device)
@@ -2613,6 +2917,7 @@ def main() -> int:
         log(f"{name} phase {time.perf_counter() - t0:.1f} s")
         if name == "kernel":
             kernels = out
+            KERNEL_MS.update({k["name"]: k["ms"] for k in out})
         elif out is not None:
             for k, v in out.items():
                 counts[k] = counts.get(k, 0) + v

@@ -124,7 +124,7 @@ def _rcnn_inputs():
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     """Both setups, and their cases started on two ranks (they run while the
-    one-process and JAX steps run here)."""
+    one-process steps run here)."""
     d = tmp_path_factory.mktemp("dp_steps")
     jax_fcos, fcos = _fcos_inputs()
     jax_rcnn, rcnn = _rcnn_inputs()
@@ -140,7 +140,12 @@ def setup(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def one_process(setup):
-    return {name: W.run_steps(case) for name, case in setup["cases"].items()}
+    """The steps in this process, beside the ranks; the ranks are joined
+    before it returns, so that the JAX steps that follow here do not spend
+    the ranks' time limit."""
+    out = {name: W.run_steps(case) for name, case in setup["cases"].items()}
+    setup["ranks"].join()
+    return out
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ MODULES = [
     "ubteacher_tpu_torch.modeling.matcher",
     "ubteacher_tpu_torch.modeling.rcnn",
     "ubteacher_tpu_torch.modeling.rpn",
+    "ubteacher_tpu_torch.ops",
     "ubteacher_tpu_torch.ops.kernels",
     "ubteacher_tpu_torch.ops.kernels.build",
     "ubteacher_tpu_torch.ops.kernels.stem_cuda",
@@ -43,11 +44,16 @@ MODULES = [
     "ubteacher_tpu_torch.structures",
     "ubteacher_tpu_torch.tools",
     "ubteacher_tpu_torch.tools.ab_stem",
+    "ubteacher_tpu_torch.tools.bench_loader",
     "ubteacher_tpu_torch.tools.common",
+    "ubteacher_tpu_torch.tools.export_inference",
     "ubteacher_tpu_torch.tools.learning_sanity",
     "ubteacher_tpu_torch.tools.mfu",
+    "ubteacher_tpu_torch.tools.microbench_rcnn",
     "ubteacher_tpu_torch.tools.parity_eval",
     "ubteacher_tpu_torch.tools.profile_step",
+    "ubteacher_tpu_torch.tools.recipe_mix",
+    "ubteacher_tpu_torch.tools.soak",
     "ubteacher_tpu_torch.train_net",
     "ubteacher_tpu_torch.utils.events",
     "ubteacher_tpu_torch.utils.visualizer",

@@ -8,6 +8,7 @@ torch and the port only, so a rank starts in seconds."""
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import signal
@@ -32,21 +33,32 @@ class Ranks:
     """A command (a launcher and its ranks) in a session of its own."""
 
     def __init__(self, proc: subprocess.Popen, timeout: float):
-        self.proc, self.deadline = proc, time.monotonic() + timeout
-        self.out = self.err = None
+        self.proc, self.timeout, self.deadline = proc, timeout, time.monotonic() + timeout
+        self.out = self.err = self.failure = None
+
+    def join(self) -> None:
+        """Wait for the command until the time runs out (then the launcher and
+        its ranks are killed); a failure is kept for wait(), with the tail of
+        the ranks' stderr, where each rank logs its progress."""
+        if self.out is not None:
+            return
+        try:
+            self.out, self.err = self.proc.communicate(timeout=max(1.0, self.deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.out, self.err = self.proc.communicate()
+            self.failure = (f"the ranks did not finish in time ({self.timeout:.0f} s from their start); "
+                            f"their stderr ends:\n{self.err[-6000:]}")
+        else:
+            if self.proc.returncode != 0:
+                self.failure = f"the ranks failed (rc {self.proc.returncode}):\n{self.err[-6000:]}"
 
     def wait(self) -> str:
-        """The launcher's stdout; raises if a rank failed or the time ran out
-        (the launcher and its ranks are killed then)."""
-        if self.out is None:
-            try:
-                self.out, self.err = self.proc.communicate(timeout=max(1.0, self.deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                os.killpg(self.proc.pid, signal.SIGKILL)
-                self.proc.communicate()
-                raise AssertionError("the ranks did not finish in time")
-            if self.proc.returncode != 0:
-                raise AssertionError(f"the ranks failed (rc {self.proc.returncode}):\n{self.err[-6000:]}")
+        """The launcher's stdout after join(); raises if a rank failed or the
+        time ran out."""
+        self.join()
+        if self.failure:
+            raise AssertionError(self.failure)
         return self.out
 
 
@@ -127,7 +139,10 @@ def run_steps(case: dict) -> list:
     """Each step of case["steps"] ((which, step, extra batch keys)) from the
     case's initial parameters, on this rank's rows -> [{"metrics": global
     figures (trainer.host_metrics), "student": state_dict, "teacher":
-    state_dict}]. `rng_seed` (optional): a CPU generator for the draws."""
+    state_dict}]. `rng_seed` (optional): a CPU generator for the draws. The
+    model, its teacher and the optimizer are built once; before each step
+    both models take the initial parameters again and the optimizer its
+    fresh state (no momentum, count 0)."""
     from ubteacher_tpu_torch.engine.trainer import host_metrics
     from ubteacher_tpu_torch.solver import build_optimizer
     from ubteacher_tpu_torch.tools.common import load_cfg
@@ -140,26 +155,47 @@ def run_steps(case: dict) -> list:
         from ubteacher_tpu_torch.engine.rcnn_trainer import RCNNTrainState as State, make_rcnn_train_steps as make
         from ubteacher_tpu_torch.modeling.rcnn import build_two_stage_rcnn as build
     burnin, mutual = make(cfg)
+    model = build(cfg, device="cpu")
+    model.load_state_dict(case["params"], strict=True)
+    state = State.create(model, build_optimizer(cfg, model))
+    fresh = copy.deepcopy(state.optimizer.state_dict())
     out = []
     for which, step, extra in case["steps"]:
-        model = build(cfg, device="cpu")
-        model.load_state_dict(case["params"], strict=True)
-        state = State.create(model, build_optimizer(cfg, model))
+        state.student.load_state_dict(case["params"], strict=True)
+        state.teacher.load_state_dict(case["params"], strict=True)
+        state.optimizer.load_state_dict(copy.deepcopy(fresh))
         state.step = step
         batch = local_batch(dict(case["batch"], **extra))
         if extra.get("rng_seed") is not None:
             batch["rng"] = torch.Generator().manual_seed(extra["rng_seed"])
         state, metrics = (burnin if which == "burnin" else mutual)(state, batch)
-        out.append({"metrics": host_metrics(metrics), "student": state.student.state_dict(),
-                    "teacher": state.teacher.state_dict()})
+        out.append({"metrics": host_metrics(metrics), "student": _copy(state.student.state_dict()),
+                    "teacher": _copy(state.teacher.state_dict())})
     return out
 
 
+def _copy(sd: dict) -> dict:
+    return {k: v.clone() for k, v in sd.items()}
+
+
 def dp_steps(inputs_path: str, out_dir: str) -> None:
-    """Every case of the inputs file through run_steps on this rank."""
+    """Every case of the inputs file through run_steps on this rank. Each
+    case's seconds go to stderr as it ends (Ranks.wait shows them on a
+    timeout) and into the rank's file under "seconds"."""
+    from ubteacher_tpu_torch.parallel import rank
+
     torch.set_num_threads(RANK_THREADS)
+    t0 = time.perf_counter()
     cases = torch.load(inputs_path, weights_only=False)
-    torch.save({name: run_steps(case) for name, case in cases.items()}, _rank_file(out_dir))
+    out, seconds = {}, {"load": time.perf_counter() - t0}
+    for name, case in cases.items():
+        t = time.perf_counter()
+        print(f"rank {rank()}: case {name} started at {t - t0:.1f} s", file=sys.stderr, flush=True)
+        out[name] = run_steps(case)
+        seconds[name] = time.perf_counter() - t
+        print(f"rank {rank()}: case {name} took {seconds[name]:.1f} s", file=sys.stderr, flush=True)
+    seconds["total"] = time.perf_counter() - t0
+    torch.save(dict(out, seconds=seconds), _rank_file(out_dir))
 
 
 # --------------------------------------------------------------------------

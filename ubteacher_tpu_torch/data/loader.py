@@ -40,7 +40,7 @@ import collections
 import logging
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import CancelledError, ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -371,6 +371,8 @@ class TwoStreamDataLoader:
             try:
                 yield futs.popleft().result()
                 consecutive = 0
+            except CancelledError:  # close() dropped the pending reads: no corrupt file, the stream ends
+                return
             except Exception:  # a corrupt file: the next sample replaces it
                 consecutive = corrupt(consecutive)
 

@@ -17,7 +17,9 @@ torch (ops/nms.py), as they sit outside the Pallas call in JAX.
 
 The library is built on first use with nvcc (ops/kernels/build.py), from the
 sources in this package only, into `ubteacher_tpu_torch/_build/`, and loaded
-with ctypes.
+with ctypes. The kernel and its plain version are the CUDA and CPU
+implementations of the torch.library op `ubt::nms_sorted_keep`, with a
+shape function for tracing.
 """
 
 from __future__ import annotations
@@ -122,11 +124,26 @@ def nms_sorted_keep_plain(
     return keep
 
 
+@torch.library.custom_op("ubt::nms_sorted_keep", mutates_args=(), device_types="cuda")
+def _nms_op(sboxes: torch.Tensor, nvalid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    # contiguous here: a traced program may hand over other strides at run time
+    return nms_sorted_keep_kernel(sboxes.contiguous(), nvalid.contiguous(), iou_threshold)
+
+
+@_nms_op.register_kernel("cpu")
+def _(sboxes, nvalid, iou_threshold):
+    return nms_sorted_keep_plain(sboxes, nvalid, iou_threshold)  # by name at each call (tests patch it)
+
+
+@_nms_op.register_fake
+def _(sboxes, nvalid, iou_threshold):
+    return sboxes.new_empty(sboxes.shape[:2], dtype=torch.bool)
+
+
 def nms_sorted_keep(
     sboxes: torch.Tensor, nvalid: torch.Tensor, iou_threshold: float
 ) -> torch.Tensor:
-    """Keep mask (B, K) in sorted order. CPU tensors take the plain version;
-    CUDA tensors the kernel."""
-    if sboxes.device.type == "cpu":
-        return nms_sorted_keep_plain(sboxes, nvalid, iou_threshold)
-    return nms_sorted_keep_kernel(sboxes, nvalid, iou_threshold)
+    """Keep mask (B, K) in sorted order, through the op `ubt::nms_sorted_keep`
+    (traceable by torch.export): CPU tensors take the plain version; CUDA
+    tensors the kernel."""
+    return torch.ops.ubt.nms_sorted_keep(sboxes, nvalid, float(iou_threshold))

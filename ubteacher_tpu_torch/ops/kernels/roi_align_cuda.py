@@ -30,6 +30,11 @@ rois_per_image, image-major; `level` (N,) int32, each roi's 0-based index
 into `feats` (ops/roi_align.py:assign_levels); `scales` the levels' 1 /
 stride. Pooled outputs are (N, P, P, C) in the feature dtype, the JAX
 layout.
+
+The forward kernel is the CUDA implementation of the torch.library op
+`ubt::roi_align_forward`, whose CPU implementation is the plain version and
+whose shape function lets torch.export trace it. The backward kernel runs
+only under autograd (ops/roi_align.py), where no trace needs it.
 """
 
 from __future__ import annotations
@@ -310,3 +315,23 @@ def roi_align_plain(
             sel = sel_all[start:start + roi_chunk]
             out[sel] = _pool_chunk(hwc, img[sel], boxes[sel], scale, p, sampling_ratio).to(f.dtype)
     return out
+
+
+@torch.library.custom_op("ubt::roi_align_forward", mutates_args=(), device_types="cuda")
+def roi_align_forward(feats: List[torch.Tensor], boxes: torch.Tensor, level: torch.Tensor, rois_per_image: int,
+                      scales: List[float], output_size: int, sampling_ratio: int) -> torch.Tensor:
+    """The op of the forward: `roi_align_forward_kernel` on CUDA tensors
+    (made contiguous here: a traced program may hand over the strides its
+    convolutions chose at run time), `roi_align_plain` on CPU tensors."""
+    return roi_align_forward_kernel([f.contiguous() for f in feats], boxes.contiguous(), level.contiguous(),
+                                    rois_per_image, scales, output_size, sampling_ratio)
+
+
+@roi_align_forward.register_kernel("cpu")
+def _(feats, boxes, level, rois_per_image, scales, output_size, sampling_ratio):
+    return roi_align_plain(feats, boxes, level, rois_per_image, scales, output_size, sampling_ratio)
+
+
+@roi_align_forward.register_fake
+def _(feats, boxes, level, rois_per_image, scales, output_size, sampling_ratio):
+    return boxes.new_empty((boxes.shape[0], output_size, output_size, feats[0].shape[1]), dtype=feats[0].dtype)

@@ -7,10 +7,13 @@ detectron2 adaptive grid of ceil(extent / P) samples per axis, capped at
 ADAPTIVE_MAX_S. Each roi is pooled from the level of FPN eq. (1).
 
 `multilevel_roi_align` keeps the JAX output layout (B, R, P, P, C). On CUDA
-tensors it runs the kernels of ops/kernels/roi_align_cuda.py (forward, and
-the backward with respect to the features through an autograd.Function);
-on CPU tensors their plain version, differentiated by autograd. Boxes get no
-gradient: proposals are detached.
+tensors it runs the kernels of ops/kernels/roi_align_cuda.py: the forward
+through the op `ubt::roi_align_forward` (what torch.export traces), and
+where the features need a gradient, the backward with respect to them
+through an autograd.Function around that op. On CPU tensors the same op
+runs the plain version, and where a gradient is needed the plain version is
+called directly and differentiated by autograd. Boxes get no gradient:
+proposals are detached.
 """
 
 from __future__ import annotations
@@ -98,9 +101,8 @@ class _ROIAlignFn(torch.autograd.Function):
     def forward(ctx, boxes, level, rois_per_image, scales, output_size, sampling_ratio, *feats):
         ctx.save_for_backward(boxes, level, *feats)
         ctx.args = (rois_per_image, scales, output_size, sampling_ratio)
-        return roi_align_cuda.roi_align_forward_kernel(
-            feats, boxes, level, rois_per_image, scales, output_size, sampling_ratio
-        )
+        return torch.ops.ubt.roi_align_forward(list(feats), boxes, level, rois_per_image, scales, output_size,
+                                               sampling_ratio)
 
     @staticmethod
     def backward(ctx, grad):
@@ -126,9 +128,13 @@ def multilevel_roi_align(
     flat = boxes.detach().reshape(b * r, 4).float().contiguous()
     level = (assign_levels(flat, min(levels), max(levels)) - min(levels)).contiguous()
     scales = [1.0 / 2**lv for lv in levels]
-    if flat.device.type == "cpu":
-        out = roi_align_cuda.roi_align_plain(feats, flat, level, r, scales, output_size, sampling_ratio)
+    cpu = flat.device.type == "cpu"
+    feats = list(feats) if cpu else [f.contiguous() for f in feats]
+    if torch.is_grad_enabled() and any(f.requires_grad for f in feats):
+        if cpu:
+            out = roi_align_cuda.roi_align_plain(feats, flat, level, r, scales, output_size, sampling_ratio)
+        else:
+            out = _ROIAlignFn.apply(flat, level, r, scales, output_size, sampling_ratio, *feats)
     else:
-        feats = [f.contiguous() for f in feats]
-        out = _ROIAlignFn.apply(flat, level, r, scales, output_size, sampling_ratio, *feats)
+        out = torch.ops.ubt.roi_align_forward(feats, flat, level, r, scales, output_size, sampling_ratio)
     return out.reshape(b, r, *out.shape[1:])

@@ -4,8 +4,10 @@
 `stem_conv_pool` keeps the JAX layout: x (B, H, W, 3) NHWC and the kernel
 (7, 7, 3, C) HWIO in, (B, ceil(H/4), ceil(W/4), C) out in `dtype`. CPU
 tensors take the plain version below; CUDA tensors the kernel of
-ops/kernels/stem_cuda.py. Either runs inside one autograd.Function whose
-backward differentiates the plain version, as the JAX custom_vjp
+ops/kernels/stem_cuda.py. Both are the implementations of the torch.library
+op `ubt::stem_conv_pool`, whose shape function lets torch.export trace it.
+Where an input needs a gradient the op runs inside an autograd.Function
+whose backward differentiates the plain version, as the JAX custom_vjp
 differentiates its XLA composition (stem_pallas.py:279-286); the stem is
 frozen in every recipe, so that backward runs only where a caller unfreezes
 it.
@@ -34,14 +36,29 @@ def stem_conv_pool_plain(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Ten
         return F.max_pool2d(y, 3, 2, 1).permute(0, 2, 3, 1)
 
 
+@torch.library.custom_op("ubt::stem_conv_pool", mutates_args=(), device_types="cuda")
+def _stem_op(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    return stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, dtype)
+
+
+@_stem_op.register_kernel("cpu")
+def _(x, kernel, scale, bias, dtype):
+    return stem_conv_pool_plain(x, kernel, scale, bias, dtype)
+
+
+@_stem_op.register_fake
+def _(x, kernel, scale, bias, dtype):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, stem_cuda.pooled_size(h), stem_cuda.pooled_size(w), kernel.shape[3]), dtype=dtype)
+
+
 class _StemConvPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel, scale, bias, dtype):
         ctx.save_for_backward(x, kernel, scale, bias)
         ctx.dtype = dtype
-        if x.device.type == "cpu":
-            return stem_conv_pool_plain(x, kernel, scale, bias, dtype)
-        return stem_cuda.stem_conv_pool_kernel(x, kernel, scale, bias, dtype)
+        return torch.ops.ubt.stem_conv_pool(x, kernel, scale, bias, dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -55,4 +72,6 @@ def stem_conv_pool(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor, b
                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Fused stem: x (B, H, W, 3) float32, kernel (7, 7, 3, C), scale and bias
     (C,) -> (B, ceil(H/4), ceil(W/4), C) in `dtype` (float32 or bfloat16)."""
-    return _StemConvPool.apply(x, kernel, scale, bias, dtype)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, scale, bias)):
+        return _StemConvPool.apply(x, kernel, scale, bias, dtype)
+    return torch.ops.ubt.stem_conv_pool(x, kernel, scale, bias, dtype)
