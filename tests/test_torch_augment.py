@@ -17,7 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import CANVAS, jax_strong_draws, synthetic_batch
+from torch_parity import (  # noqa: F401 (tmp_budget: an autouse fixture)
+    CANVAS,
+    jax_strong_draws,
+    synthetic_batch,
+    tmp_budget,
+)
 from ubteacher_tpu.data.augment import strong_augment as j_strong_augment
 from ubteacher_tpu_torch.data.augment import apply_strong, draw_strong_params
 

@@ -13,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import few_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_parity import (  # noqa: F401 (few_torch_threads, tmp_budget: autouse fixtures)
+    few_torch_threads,
+    tmp_budget,
+)
 from ubteacher_tpu_torch.tools import bench_loader
 
 ROOT = Path(__file__).resolve().parent.parent

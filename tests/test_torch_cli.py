@@ -14,7 +14,12 @@ import torch
 
 from test_cli import _write_coco_root
 from test_full_checkpoint_convert import _synthetic_reference_state
-from torch_parity import TEST_TORCH_THREADS, few_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_parity import (  # noqa: F401 (fixtures: autouse, or named in usefixtures)
+    TEST_TORCH_THREADS,
+    few_torch_threads,
+    large_files_removed,
+    tmp_budget,
+)
 from ubteacher_tpu.checkpoint.torch_weights import convert_ubt_fcos_model as jax_convert
 from ubteacher_tpu_torch import train_net
 from ubteacher_tpu_torch.checkpoint import params_from_jax
@@ -65,6 +70,7 @@ def coco_root(tmp_path, monkeypatch):
     return root
 
 
+@pytest.mark.usefixtures("large_files_removed")
 def test_cli_trains_then_evaluates_the_checkpoint(tmp_path, coco_root):
     out_dir = tmp_path / "out"
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT), OMP_NUM_THREADS=str(TEST_TORCH_THREADS))
@@ -85,6 +91,7 @@ def test_cli_trains_then_evaluates_the_checkpoint(tmp_path, coco_root):
     assert {"AP", "AP50", "AP75"} <= set(results) and np.isfinite(results["AP"])
 
 
+@pytest.mark.usefixtures("large_files_removed")
 def test_eval_only_loads_a_reference_checkpoint(tmp_path, coco_root, caplog):
     """--eval-only MODEL.WEIGHTS x.pth fills the teacher and the student of
     an EnsembleTSModel checkpoint (DDP 'module.' prefix on the student)
@@ -117,6 +124,7 @@ def test_eval_only_loads_a_reference_checkpoint(tmp_path, coco_root, caplog):
     assert "AP" in results
 
 
+@pytest.mark.usefixtures("large_files_removed")
 def test_vis_period_writes_panels(tmp_path, coco_root):
     """VIS_PERIOD: labeled (gt | student pred) panels, and in the mutual
     phase unlabeled (pseudo-cls | pseudo-reg | student pred) ones."""

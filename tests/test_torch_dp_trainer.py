@@ -36,7 +36,7 @@ import torch
 
 import torch_dp_worker as W
 from test_torch_fcos_trainer import CLS_BIAS, RNG_KEY, SEED, _compare_metrics, _compare_params, _jax_step
-from torch_parity import (  # noqa: F401 (few_torch_threads: an autouse fixture)
+from torch_parity import (  # noqa: F401 (fixtures: autouse, or named in usefixtures)
     CANVAS,
     CFG_PATH,
     RCNN_B,
@@ -56,11 +56,15 @@ from torch_parity import (  # noqa: F401 (few_torch_threads: an autouse fixture)
     jax_rcnn_step,
     jax_sampling_draws,
     jax_strong_draws,
+    large_files_removed,
     port_instances,
     rcnn_setup,
+    remove_large_files,
+    remove_large_files_at_teardown,
     small_cfgs,
     synthetic_batch,
     synthetic_coco,
+    tmp_budget,
     trainer_datasets,
 )
 from ubteacher_tpu_torch.checkpoint import params_from_jax
@@ -122,10 +126,12 @@ def _rcnn_inputs():
 
 
 @pytest.fixture(scope="module")
-def setup(tmp_path_factory):
+def setup(tmp_path_factory, request):
     """Both setups, and their cases started on two ranks (they run while the
-    one-process steps run here)."""
+    one-process steps run here). The inputs and rank files are deleted when
+    the module ends, whatever its outcome."""
     d = tmp_path_factory.mktemp("dp_steps")
+    remove_large_files_at_teardown(request, d)
     jax_fcos, fcos = _fcos_inputs()
     jax_rcnn, rcnn = _rcnn_inputs()
     cases = {"fcos": fcos, "rcnn": rcnn}
@@ -150,8 +156,19 @@ def one_process(setup):
 
 @pytest.fixture(scope="module")
 def ranked(setup):
+    """The ranks' results, in memory (the inputs and rank files are deleted
+    once read), with the tensors a rank left at the case's initial value
+    (torch_dp_worker.dp_steps writes None for them) put back."""
     setup["ranks"].wait()
-    return [torch.load(str(setup["dir"] / f"rank{r}.pt"), weights_only=False) for r in range(WORLD)]
+    d = setup["dir"]
+    files = [torch.load(str(d / f"rank{r}.pt"), weights_only=False) for r in range(WORLD)]
+    remove_large_files(d)
+    for got in files:
+        for name, case in setup["cases"].items():
+            for step in got[name]:
+                for part in ("student", "teacher"):
+                    step[part] = {k: case["params"][k] if v is None else v for k, v in step[part].items()}
+    return files
 
 
 def test_fcos_one_process_matches_jax(setup, one_process):
@@ -244,6 +261,7 @@ def test_ranks_hold_bitwise_equal_parameters(ranked, name):
                 assert torch.equal(v, ranked[1][name][i][part][k]), f"{name} step {i} {part} {k}"
 
 
+@pytest.mark.usefixtures("large_files_removed")
 def test_trainer_on_two_ranks_matches_one_process(tmp_path):
     """UBTeacherTrainer on two ranks (each loading its rows of the 2 + 2
     global batch) against one process: per-iteration global metrics and

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (
+from torch_parity import (  # noqa: F401 (tmp_budget: an autouse fixture)
     CANVAS,
     RCNN_CANVAS,
     RCNN_CLS_BIAS,
@@ -31,6 +31,7 @@ from torch_parity import (
     port_rcnn_model,
     small_cfgs,
     small_rcnn_cfgs,
+    tmp_budget,
 )
 
 NUM_CLASSES = 4

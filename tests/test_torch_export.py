@@ -24,7 +24,7 @@ import torch
 
 from test_torch_evaluator import BATCHES, _compare_detections
 from test_torch_rcnn_ops import DET_ATOL
-from torch_parity import (  # noqa: F401 (few_torch_threads: an autouse fixture)
+from torch_parity import (  # noqa: F401 (few_torch_threads, tmp_budget: autouse fixtures)
     RCNN_CANVAS,
     SMALL_OPTS,
     few_torch_threads,
@@ -33,6 +33,7 @@ from torch_parity import (  # noqa: F401 (few_torch_threads: an autouse fixture)
     port_rcnn_model,
     rcnn_setup,
     small_cfgs,
+    tmp_budget,
 )
 from ubteacher_tpu_torch.ops.kernels import nms_cuda, roi_align_cuda
 from ubteacher_tpu_torch.tools import export_inference as export

@@ -15,7 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import CANVAS, jax_instances, port_instances, small_cfgs
+from torch_parity import (  # noqa: F401 (tmp_budget: an autouse fixture)
+    CANVAS,
+    jax_instances,
+    port_instances,
+    small_cfgs,
+    tmp_budget,
+)
 from ubteacher_tpu.modeling import fcos_outputs as J
 from ubteacher_tpu_torch.modeling import fcos_outputs as T
 

@@ -25,7 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from torch_parity import (
+from torch_parity import (  # noqa: F401 (tmp_budget: an autouse fixture)
     CANVAS,
     jax_instances,
     jax_model_and_params,
@@ -34,6 +34,7 @@ from torch_parity import (
     port_model,
     small_cfgs,
     synthetic_batch,
+    tmp_budget,
 )
 
 B = 2

@@ -11,7 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import CANVAS, jax_model_and_params, port_model, small_cfgs, small_rcnn_cfgs
+from torch_parity import (  # noqa: F401 (tmp_budget: an autouse fixture)
+    CANVAS,
+    jax_model_and_params,
+    port_model,
+    small_cfgs,
+    small_rcnn_cfgs,
+    tmp_budget,
+)
 
 
 def test_fcos_model_matches_jax():

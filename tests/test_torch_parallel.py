@@ -18,7 +18,11 @@ import torch_dp_worker as W
 from test_cli import _write_coco_root
 from test_torch_cli import CONFIG, _opts
 from test_torch_train_loader import _batches, _cfgs, _dataset, assert_batches_equal
-from torch_parity import few_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_parity import (  # noqa: F401 (fixtures: autouse, or named in usefixtures)
+    few_torch_threads,
+    large_files_removed,
+    tmp_budget,
+)
 from ubteacher_tpu.data import loader as j_loader
 from ubteacher_tpu_torch import parallel, train_net
 from ubteacher_tpu_torch.data import loader as t_loader
@@ -134,6 +138,7 @@ def _eval_lines(stdout):
             for line in stdout.splitlines() if line.startswith("{") and "'AP'" in line]
 
 
+@pytest.mark.usefixtures("large_files_removed")
 def test_cli_on_two_processes(tmp_path, monkeypatch):
     """python -m ubteacher_tpu_torch.train_net --num-gpus 2 MODEL.DEVICE cpu
     trains on two gloo ranks: rank 0 logs finite global losses and writes

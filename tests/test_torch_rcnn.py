@@ -34,7 +34,7 @@ import pytest
 
 from ubteacher_tpu_torch.ops.kernels import nms_cuda
 
-from torch_parity import (
+from torch_parity import (  # noqa: F401 (tmp_budget: an autouse fixture)
     RCNN_B,
     RCNN_CANVAS,
     RCNN_NUM_ANCHORS,
@@ -45,6 +45,7 @@ from torch_parity import (
     jax_sampling_draws,
     port_rcnn_step,
     rcnn_setup,
+    tmp_budget,
 )
 
 B = RCNN_B

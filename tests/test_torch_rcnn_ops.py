@@ -59,7 +59,7 @@ from ubteacher_tpu_torch.ops.roi_align import multilevel_roi_align
 from ubteacher_tpu_torch.ops.row_gather import take_rows
 from ubteacher_tpu_torch.structures import PaddedInstances
 
-from torch_parity import (
+from torch_parity import (  # noqa: F401 (tmp_budget: an autouse fixture)
     RCNN_B,
     RCNN_CANVAS,
     RCNN_SEED,
@@ -67,6 +67,7 @@ from torch_parity import (
     port_rcnn_model,
     rcnn_setup,
     small_rcnn_cfgs,
+    tmp_budget,
 )
 
 STRIDES = (4, 8, 16, 32, 64)

@@ -15,7 +15,11 @@ import copy
 import pytest
 import torch
 
-from torch_parity import few_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_parity import (  # noqa: F401 (fixtures: autouse, or named in usefixtures)
+    few_torch_threads,
+    large_files_removed,
+    tmp_budget,
+)
 from ubteacher_tpu_torch.tools import soak
 
 TINY = [
@@ -71,6 +75,7 @@ def test_state_hash_is_stable_and_sensitive():
     assert h not in hashes and len(set(hashes)) == len(hashes)
 
 
+@pytest.mark.usefixtures("large_files_removed")
 def test_kill_and_resume_tiny(tmp_path, monkeypatch):
     monkeypatch.setenv("OMP_NUM_THREADS", "2")
     summary = soak.main(TINY + ["--workdir", str(tmp_path)])

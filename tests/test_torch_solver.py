@@ -9,7 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_parity import jax_model_and_params, port_model, small_cfgs
+from torch_parity import (  # noqa: F401 (tmp_budget: an autouse fixture)
+    jax_model_and_params,
+    port_model,
+    small_cfgs,
+    tmp_budget,
+)
 from ubteacher_tpu.engine.fcos_trainer import _ema_update as j_ema_update
 from ubteacher_tpu.solver import build as JS
 from ubteacher_tpu_torch.checkpoint import params_from_jax

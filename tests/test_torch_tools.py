@@ -18,7 +18,13 @@ import torch.nn as nn
 from test_cli import _write_coco_root
 from test_full_checkpoint_convert import _synthetic_reference_state
 from test_torch_cli import CONFIG, _opts
-from torch_parity import RCNN_SMALL_OPTS, SMALL_OPTS, few_torch_threads  # noqa: F401 (an autouse fixture)
+from torch_parity import (  # noqa: F401 (fixtures: autouse, or named in usefixtures)
+    RCNN_SMALL_OPTS,
+    SMALL_OPTS,
+    few_torch_threads,
+    large_files_removed,
+    tmp_budget,
+)
 from ubteacher_tpu_torch import train_net
 from ubteacher_tpu_torch.data.coco import generate_supervision_seed_file
 from ubteacher_tpu_torch.tools import ab_stem, learning_sanity, mfu, parity_eval, profile_step
@@ -178,6 +184,7 @@ def test_ab_stem_leaves_out_windows_that_lost_rows():
     assert ab_stem.best_window(windows[:1]) == windows[0]
 
 
+@pytest.mark.usefixtures("large_files_removed")
 def test_parity_eval_gives_the_eval_only_results(tmp_path, monkeypatch):
     """A reference-format EnsembleTSModel .pth on a synthetic COCO root:
     parity_eval's AP table equals `train_net --eval-only MODEL.WEIGHTS`'s

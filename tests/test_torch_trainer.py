@@ -28,14 +28,17 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (  # noqa: F401 (few_torch_threads: an autouse fixture)
+from torch_parity import (  # noqa: F401 (fixtures: autouse, or named in usefixtures)
     JaxKeyDraws,
     canvas_opts,
     few_torch_threads,
     jax_strong_draws,
+    large_files_removed,
     read_metrics,
+    remove_large_files_at_teardown,
     synthetic_coco,
     trainer_cfgs,
+    tmp_budget,
     trainer_datasets,
 )
 
@@ -61,7 +64,7 @@ def _fcos_draws(burn_up):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs(tmp_path_factory, request):
     """Both packages' 4-iteration runs -> (JAX metrics lines, port metrics
     lines, port trainer)."""
     from ubteacher_tpu.engine.trainer import UBTeacherTrainer as JaxTrainer
@@ -70,6 +73,7 @@ def runs(tmp_path_factory):
     from ubteacher_tpu_torch.engine.trainer import UBTeacherTrainer
 
     out = tmp_path_factory.mktemp("fcos_runs")
+    remove_large_files_at_teardown(request, out)
     jcfg, tcfg = trainer_cfgs(out)
     dicts, image_loader = synthetic_coco()
     datasets = trainer_datasets(dicts)
@@ -136,6 +140,7 @@ def _assert_state_equal(a, b):
     assert torch.equal(a["generator"], b["generator"])
 
 
+@pytest.mark.usefixtures("large_files_removed")
 def test_checkpoint_resume_is_bitwise(tmp_path):
     """Train 4 iterations (checkpoints at 2 and 4), then a new trainer with
     resume=True restores student, teacher, momentum buffers, update count,
@@ -231,6 +236,7 @@ def test_auto_scale_workers_and_verify_results_match_jax():
         assert verify_results(tcfg, results) == j_verify(jcfg, results)
 
 
+@pytest.mark.usefixtures("large_files_removed")
 def test_profile_dir_writes_a_trace_from_step_10(tmp_path, monkeypatch):
     """UBT_PROFILE_DIR: a torch.profiler trace from the run's iteration 10
     (to 20, or to the end of a shorter run: here iteration 10 alone)."""

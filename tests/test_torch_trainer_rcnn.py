@@ -25,15 +25,17 @@ import jax
 import numpy as np
 import pytest
 
-from torch_parity import (  # noqa: F401 (few_torch_threads: an autouse fixture)
+from torch_parity import (  # noqa: F401 (few_torch_threads, tmp_budget: autouse fixtures)
     JaxKeyDraws,
     few_torch_threads,
     hold_jax_rcnn_step,
     identity_strong_draws,
     jax_sampling_draws,
     read_metrics,
+    remove_large_files_at_teardown,
     synthetic_coco,
     trainer_cfgs,
+    tmp_budget,
     trainer_datasets,
 )
 
@@ -67,12 +69,13 @@ def _rcnn_draws(cfg):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs(tmp_path_factory, request):
     from ubteacher_tpu.engine.trainer import UBRCNNTeacherTrainer as JaxTrainer
     from ubteacher_tpu_torch.checkpoint import params_from_jax
     from ubteacher_tpu_torch.engine.trainer import UBRCNNTeacherTrainer
 
     out = tmp_path_factory.mktemp("rcnn_runs")
+    remove_large_files_at_teardown(request, out)
     jcfg, tcfg = trainer_cfgs(out, rcnn=True, extra_opts=["TPU.ORACLE_PSEUDO", "True"])
     dicts, image_loader = synthetic_coco(size=48)
     datasets = trainer_datasets(dicts)

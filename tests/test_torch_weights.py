@@ -18,7 +18,12 @@ import torch
 
 from test_full_checkpoint_convert import _synthetic_rcnn_reference_state, _synthetic_reference_state
 from test_weights import _synthetic_c2_dict
-from torch_parity import small_cfgs, small_rcnn_cfgs
+from torch_parity import (  # noqa: F401 (fixtures: autouse, or named in usefixtures)
+    large_files_removed,
+    small_cfgs,
+    small_rcnn_cfgs,
+    tmp_budget,
+)
 from ubteacher_tpu.checkpoint import torch_weights as jw
 from ubteacher_tpu_torch.checkpoint import params_from_jax
 from ubteacher_tpu_torch.checkpoint import torch_weights as tw
@@ -140,6 +145,7 @@ def test_split_ensemble_state_matches_jax():
             assert got[part][k] is ref[part][k]
 
 
+@pytest.mark.usefixtures("large_files_removed")
 @pytest.mark.parametrize("fmt", ["c2", "d2"])
 def test_pretrained_backbone_pickle(tmp_path, fmt):
     """load_c2_pickle + load_pretrained_backbone on a Caffe2 (AffineChannel)

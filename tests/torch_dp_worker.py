@@ -178,10 +178,18 @@ def _copy(sd: dict) -> dict:
     return {k: v.clone() for k, v in sd.items()}
 
 
+def _moved(sd: dict, init: dict) -> dict:
+    """sd with None for each tensor bit for bit equal to init's."""
+    return {k: None if v.dtype == init[k].dtype and torch.equal(v, init[k]) else v for k, v in sd.items()}
+
+
 def dp_steps(inputs_path: str, out_dir: str) -> None:
     """Every case of the inputs file through run_steps on this rank. Each
     case's seconds go to stderr as it ends (Ranks.wait shows them on a
-    timeout) and into the rank's file under "seconds"."""
+    timeout) and into the rank's file under "seconds". A tensor of a
+    step's student or teacher that is bit for bit the case's initial value
+    is written as None (the test holds the initial values and puts them
+    back): the teacher is that at every step, half of the file."""
     from ubteacher_tpu_torch.parallel import rank
 
     torch.set_num_threads(RANK_THREADS)
@@ -191,7 +199,8 @@ def dp_steps(inputs_path: str, out_dir: str) -> None:
     for name, case in cases.items():
         t = time.perf_counter()
         print(f"rank {rank()}: case {name} started at {t - t0:.1f} s", file=sys.stderr, flush=True)
-        out[name] = run_steps(case)
+        out[name] = [dict(step, **{part: _moved(step[part], case["params"]) for part in ("student", "teacher")})
+                     for step in run_steps(case)]
         seconds[name] = time.perf_counter() - t
         print(f"rank {rank()}: case {name} took {seconds[name]:.1f} s", file=sys.stderr, flush=True)
     seconds["total"] = time.perf_counter() - t0
@@ -270,5 +279,9 @@ def state_differs(a: dict, b: dict) -> list:
 
 
 def dp_trainer(data_path: str, cfg_path: str, opts: list, out_dir: str) -> None:
+    """run_trainer on this rank, without "init" in the rank's file (the test
+    takes the initial models from its one-process run)."""
     torch.set_num_threads(RANK_THREADS)
-    torch.save(run_trainer(data_path, cfg_path, opts), _rank_file(out_dir))
+    out = run_trainer(data_path, cfg_path, opts)
+    del out["init"]
+    torch.save(out, _rank_file(out_dir))

@@ -571,3 +571,70 @@ def few_torch_threads():
     torch.set_num_threads(TEST_TORCH_THREADS)
     yield
     torch.set_num_threads(before)
+
+
+# what a port test may leave under its temp dir (its tmp_path, or a module
+# fixture's mktemp dir) when it ends. pytest keeps the last three runs' temp
+# dirs and deletes older ones only when a run exits, so a test that leaves
+# checkpoints fills the disk across runs. About three times the most a port
+# test leaves once its large files are gone: 5 MB (the soak's synthetic
+# JPEGs, profile_step's trace; port_tools/test_footprint.py scan)
+TMP_BUDGET = 16 << 20
+# the files remove_large_files deletes: checkpoints, weights, rank and input
+# files; logs, metrics.json, small JSON and the synthetic JPEGs stay
+LARGE_FILE = 1 << 20
+
+
+def tmp_footprint(root) -> tuple:
+    """(bytes of the files under root, the five largest as (bytes, path
+    relative to root))."""
+    sizes = []
+    for d, _, files in os.walk(root):
+        for f in files:
+            p = os.path.join(d, f)
+            sizes.append((os.lstat(p).st_size, os.path.relpath(p, root)))
+    return sum(s for s, _ in sizes), sorted(sizes, reverse=True)[:5]
+
+
+def check_tmp_budget(root) -> None:
+    """Fail if the files left under root hold more than TMP_BUDGET bytes,
+    naming the five largest."""
+    total, largest = tmp_footprint(root)
+    if total > TMP_BUDGET:
+        names = ", ".join(f"{p} ({s / 2**20:.1f} MiB)" for s, p in largest)
+        pytest.fail(f"{root} holds {total / 2**20:.1f} MiB after the test, over the budget of "
+                    f"{TMP_BUDGET / 2**20:.0f} MiB; the largest files: {names}", pytrace=False)
+
+
+def remove_large_files(root) -> None:
+    """Delete every file of at least LARGE_FILE bytes under root."""
+    for d, _, files in os.walk(root):
+        for f in files:
+            p = os.path.join(d, f)
+            if os.lstat(p).st_size >= LARGE_FILE:
+                os.unlink(p)
+
+
+@pytest.fixture(autouse=True)
+def tmp_budget(request):
+    """Autouse in the modules that import it: check_tmp_budget on the test's
+    tmp_path when the test ends (a test without one passes through)."""
+    root = request.getfixturevalue("tmp_path") if "tmp_path" in request.fixturenames else None
+    yield
+    if root is not None:
+        check_tmp_budget(root)
+
+
+def remove_large_files_at_teardown(request, root) -> None:
+    """For a module fixture's mktemp dir: remove_large_files(root), then
+    check_tmp_budget(root), when the fixture ends, whatever the outcome."""
+    request.addfinalizer(lambda: check_tmp_budget(root))
+    request.addfinalizer(lambda: remove_large_files(root))
+
+
+@pytest.fixture
+def large_files_removed(tmp_path):
+    """remove_large_files(tmp_path) when the test ends, whatever its outcome
+    (before tmp_budget looks)."""
+    yield
+    remove_large_files(tmp_path)

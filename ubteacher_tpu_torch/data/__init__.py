@@ -1,2 +1,2 @@
-"""Strong augmentation, the COCO json readers and the test loader (PyTorch
-port of ubteacher_tpu.data; the two-stream train loader is not ported yet)."""
+"""Strong augmentation, the COCO json readers, the two-stream train loader
+and the test loader (PyTorch port of ubteacher_tpu.data)."""
