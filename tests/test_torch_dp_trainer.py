@@ -45,6 +45,7 @@ from torch_parity import (  # noqa: F401 (fixtures: autouse, or named in usefixt
     RCNN_NUM_ANCHORS,
     RCNN_SMALL_OPTS,
     SMALL_OPTS,
+    SPAN_SCALARS,
     TRAINER_OPTS,
     canvas_opts,
     compare_rcnn_metrics,
@@ -237,9 +238,18 @@ def _assert_updates_close(got, ref, init, what):
 
 
 @pytest.mark.parametrize("name", ["fcos", "rcnn"])
-def test_ranks_match_one_process(setup, one_process, ranked, name):
+def test_ranks_match_one_process(setup, one_process, ranked, name, request):
     """Each step on two ranks: the global metrics (summed over the ranks)
-    and the updates are one process's on the global batch."""
+    and the updates are one process's on the global batch. The ranks'
+    timing goes into the junit report (seconds from the launch to each
+    rank's start and to the join, and each rank's cases), to place a run
+    that misses RANKS_TIMEOUT."""
+    ranks = setup["ranks"]
+    request.node.user_properties.append(("ranks_seconds", {
+        "launch_to_join": round(ranks.ended - ranks.started, 1),
+        "rank_start": [round(f["seconds"]["started_at"] - ranks.started, 1) for f in ranked],
+        "rank_cases": [{k: round(v, 1) for k, v in f["seconds"].items() if k != "started_at"} for f in ranked],
+    }))
     init = setup["cases"][name]["params"]
     for i, ref in enumerate(one_process[name]):
         what = f"{name} step {i}"
@@ -284,7 +294,7 @@ def test_trainer_on_two_ranks_matches_one_process(tmp_path):
     finally:
         ranks.wait()
     got = [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False) for r in range(WORLD)]
-    uncompared = {"time", "data_time", "corrupt_rows_total"}
+    uncompared = {"time", "data_time", "corrupt_rows_total", *SPAN_SCALARS}
     assert len(ref["scalars"]) == 4
     assert ref["resume_differs"] == []
     for r, g in enumerate(got):

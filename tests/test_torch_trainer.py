@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from torch_parity import (  # noqa: F401 (fixtures: autouse, or named in usefixtures)
+    SPAN_SCALARS,
     JaxKeyDraws,
     canvas_opts,
     few_torch_threads,
@@ -46,7 +47,7 @@ CLS_BIAS = 0.5
 # the runs that are not compared with JAX: 48-pixel images on 64x64 canvases
 SMALL = canvas_opts(64, 48)
 # wall-clock and process-wide counters: not compared
-UNCOMPARED = {"time", "data_time", "sec_per_iter", "corrupt_rows_total", "iteration"}
+UNCOMPARED = {"time", "data_time", "sec_per_iter", "corrupt_rows_total", "iteration", *SPAN_SCALARS}
 EXACT = ("num_pseudo_cls", "num_pseudo_reg", "ema_rate_1000x")
 
 
@@ -239,7 +240,8 @@ def test_auto_scale_workers_and_verify_results_match_jax():
 @pytest.mark.usefixtures("large_files_removed")
 def test_profile_dir_writes_a_trace_from_step_10(tmp_path, monkeypatch):
     """UBT_PROFILE_DIR: a torch.profiler trace from the run's iteration 10
-    (to 20, or to the end of a shorter run: here iteration 10 alone)."""
+    (to 20, or to the end of a shorter run: here iteration 10 alone), with
+    the loop's and the step's spans."""
     from ubteacher_tpu_torch.engine.trainer import UBTeacherTrainer
 
     dicts, image_loader = synthetic_coco(size=48)
@@ -252,6 +254,8 @@ def test_profile_dir_writes_a_trace_from_step_10(tmp_path, monkeypatch):
     with open(tmp_path / "trace" / traces[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("conv" in e.get("name", "") for e in events)
+    names = {e.get("name") for e in events}
+    assert {"ubt.train.iteration", "ubt.step", "ubt.step.student_forward", "ubt.step.backward"} <= names
 
 
 def test_device_none_means_the_card(monkeypatch):

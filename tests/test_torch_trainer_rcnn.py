@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 from torch_parity import (  # noqa: F401 (few_torch_threads, tmp_budget: autouse fixtures)
+    SPAN_SCALARS,
     JaxKeyDraws,
     few_torch_threads,
     hold_jax_rcnn_step,
@@ -39,7 +40,7 @@ from torch_parity import (  # noqa: F401 (few_torch_threads, tmp_budget: autouse
     trainer_datasets,
 )
 
-UNCOMPARED = {"time", "data_time", "sec_per_iter", "corrupt_rows_total", "iteration"}
+UNCOMPARED = {"time", "data_time", "sec_per_iter", "corrupt_rows_total", "iteration", *SPAN_SCALARS}
 EXACT = ("num_pseudo", "ema_rate_1000x")
 
 

@@ -23,9 +23,13 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 TESTS = os.path.dirname(os.path.abspath(__file__))
 # intra-op threads of each rank (tests/torch_parity.py:TEST_TORCH_THREADS)
 RANK_THREADS = 2
-# each multi-process test's limit; a collective waits at most COLLECTIVE_TIMEOUT
-# for a peer that stopped answering
-RANKS_TIMEOUT = 110.0
+# each multi-process test's limit, from the launch; a collective waits at most
+# COLLECTIVE_TIMEOUT for a peer that stopped answering, so a hung rank fails
+# sooner. The ranks share the cores with the suite's other workers: the 2-rank
+# steps' ranks need 34-44 s beside six loaded workers on eight cores (about
+# 100 CPU seconds), and missed 110 s in the suite's slower runs; 300 s holds
+# inside the suite's 1,470 s
+RANKS_TIMEOUT = 300.0
 COLLECTIVE_TIMEOUT = 60.0
 
 
@@ -34,6 +38,8 @@ class Ranks:
 
     def __init__(self, proc: subprocess.Popen, timeout: float):
         self.proc, self.timeout, self.deadline = proc, timeout, time.monotonic() + timeout
+        self.started = time.time()
+        self.ended = None
         self.out = self.err = self.failure = None
 
     def join(self) -> None:
@@ -47,11 +53,12 @@ class Ranks:
         except subprocess.TimeoutExpired:
             os.killpg(self.proc.pid, signal.SIGKILL)
             self.out, self.err = self.proc.communicate()
-            self.failure = (f"the ranks did not finish in time ({self.timeout:.0f} s from their start); "
-                            f"their stderr ends:\n{self.err[-6000:]}")
+            self.failure = (f"the ranks did not finish in time ({self.timeout:.0f} s from their start at "
+                            f"{self.started:.1f} s wall); their stderr ends:\n{self.err[-6000:]}")
         else:
             if self.proc.returncode != 0:
                 self.failure = f"the ranks failed (rc {self.proc.returncode}):\n{self.err[-6000:]}"
+        self.ended = time.time()
 
     def wait(self) -> str:
         """The launcher's stdout after join(); raises if a rank failed or the
@@ -193,9 +200,11 @@ def dp_steps(inputs_path: str, out_dir: str) -> None:
     from ubteacher_tpu_torch.parallel import rank
 
     torch.set_num_threads(RANK_THREADS)
+    started = time.time()
+    print(f"rank {rank()}: started its cases at {started:.1f} s wall", file=sys.stderr, flush=True)
     t0 = time.perf_counter()
     cases = torch.load(inputs_path, weights_only=False)
-    out, seconds = {}, {"load": time.perf_counter() - t0}
+    out, seconds = {}, {"started_at": started, "load": time.perf_counter() - t0}
     for name, case in cases.items():
         t = time.perf_counter()
         print(f"rank {rank()}: case {name} started at {t - t0:.1f} s", file=sys.stderr, flush=True)

@@ -557,6 +557,12 @@ def read_metrics(output_dir):
         return [json.loads(line) for line in f]
 
 
+# the trainer's per-iteration host timings read from its spans
+# (engine/trainer.py:span_scalars): wall-clock and process-wide, never compared
+SPAN_SCALARS = ("queue_wait_time", "h2d_time", "dispatch_time", "backward_time", "fetch_time",
+                "dispatch_cpu_time", "loader_cpu_time", "loader_images", "loader_queue_depth")
+
+
 # torch's intra-op threads while a module's trainer runs: one per core is
 # the default, and the suite's parallel workers, each with as many, then
 # oversubscribe the CPU many times over (a 4 s run took 329 s so)

@@ -48,6 +48,7 @@ import torch
 
 from ..parallel import owned_rows, rank, world_size
 from ..structures import PaddedInstances
+from ..utils.events import span
 from .augment import materialize_weak_augment, weak_augment_geometry
 
 logger = logging.getLogger("ubteacher_tpu_torch")
@@ -59,6 +60,9 @@ logger = logging.getLogger("ubteacher_tpu_torch")
 # data/common.py:22-43)
 DECODE_STATS = {"train": 0, "test": 0, "corrupt": 0}
 _STATS_LOCK = threading.Lock()
+# batches ready in the prefetch queue when the consumer last asked for one
+# (the trainer reports it every iteration as loader_queue_depth)
+PREFETCH = {"ready": 0}
 
 # TPU.ORACLE_PSEUDO: the boundary-uncertainty logit attached to oracle boxes
 # (ground truth fed as pseudo labels). The tsbetter gates read the teacher's
@@ -318,9 +322,12 @@ class TwoStreamDataLoader:
     def _materialize(self, item: Dict) -> Dict:
         """Read and weak-augment one geometry record's pixels; raises on a
         corrupt file (the caller replaces the sample)."""
-        img = self._image_loader(item["dict"]["file_name"])
+        with span("ubt.loader.read"):
+            img = self._image_loader(item["dict"]["file_name"])
         _bump("train")
-        return dict(item, image=materialize_weak_augment(img, item["geom"]))
+        with span("ubt.loader.augment"):
+            image = materialize_weak_augment(img, item["geom"])
+        return dict(item, image=image)
 
     def _materialize_owned(self, item: Dict) -> Dict:
         """Several processes: a corrupt file gives a zero uint8 image on its
@@ -453,7 +460,9 @@ class TwoStreamDataLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                PREFETCH["ready"] = q.qsize()
+                with span("ubt.loader.queue_wait"):
+                    item = q.get()
                 if isinstance(item, Exception):
                     raise item
                 yield item

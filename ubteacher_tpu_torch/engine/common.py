@@ -10,6 +10,7 @@ import torch
 
 from ..data.augment import apply_strong, draw_strong_params
 from ..parallel import reduce_gradients, take_owned, world_size
+from ..utils.events import span
 
 
 def image_hw(images: torch.Tensor) -> torch.Tensor:
@@ -53,11 +54,13 @@ def owned_draws(draws, blocks: Sequence[int]):
 
 def sgd_step(state, total: torch.Tensor) -> None:
     """backward, the gradients summed over the ranks (parallel/dist.py's
-    rule), one optimizer step."""
+    rule), one optimizer step; each in its span."""
     state.optimizer.zero_grad()
-    total.backward()
+    with span("ubt.step.backward"):
+        total.backward()
     reduce_gradients(state.student.parameters())
-    state.optimizer.step()
+    with span("ubt.step.optimizer"):
+        state.optimizer.step()
     state.step += 1
 
 

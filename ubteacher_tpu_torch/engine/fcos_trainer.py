@@ -14,6 +14,10 @@ Both steps update `state` in place (student and teacher parameters, the
 optimizer) where the JAX steps donate it, and return (state, metrics) with
 the metrics as device tensors (no host sync inside a step).
 
+Each phase runs in a span (utils/events.py): ubt.step.ema, .teacher_forward,
+.pseudo_labels, .strong_aug, .student_forward, .losses, and sgd_step's
+.backward, .grad_allreduce and .optimizer.
+
 On the card the model runs under bf16 autocast when TPU.COMPUTE_DTYPE is
 "bfloat16"; head outputs, losses and the optimizer stay in float32.
 """
@@ -40,6 +44,7 @@ from ..modeling.fcos_outputs import (
 )
 from ..solver.build import Optimizer
 from ..structures import PaddedInstances
+from ..utils.events import span
 from .common import float_images, hw_or_canvas, sgd_step, strong_view
 
 
@@ -126,13 +131,16 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
         batch = float_images(batch)
         images_l = batch["images_label_k"]
         label_hw = hw_or_canvas(batch, "label_hw", images_l)
-        label_q = strong_view(batch, "label", images_l)
+        with span("ubt.step.strong_aug"):
+            label_q = strong_view(batch, "label", images_l)
         images = torch.cat([label_q, images_l], 0)
         gt2 = batch["gt_label"].map(lambda x: torch.cat([x, x], 0))
         hw2 = torch.cat([label_hw, label_hw], 0)
-        dense = _forward(state.student, images, hw2)
-        losses = _sup_losses_from_dense(dense, images.shape[1:3], gt2, hw2)
-        total = sum(losses.values())
+        with span("ubt.step.student_forward"):
+            dense = _forward(state.student, images, hw2)
+        with span("ubt.step.losses"):
+            losses = _sup_losses_from_dense(dense, images.shape[1:3], gt2, hw2)
+            total = sum(losses.values())
         sgd_step(state, total)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
@@ -164,14 +172,16 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
         """Teacher forward + BOTH NMS passes + PSEUDO_BBOX_SAMPLE dispatch
         (reference trainer.py:231-294) -> (pseudo_cls, pseudo_reg, number of
         valid NMS candidates over both passes)."""
-        dense_t = _forward(teacher, unl_k, unlabel_hw)
-        det_cls = _decode_teacher(dense_t, unl_k, f.NMS_CRITERIA_TRAIN, unlabel_hw)
-        det_reg = _decode_teacher(dense_t, unl_k, f.NMS_CRITERIA_REG_TRAIN, unlabel_hw)
-        pseudo_cls = _threshold(det_cls, sem.PSEUDO_BBOX_SAMPLE,
-                                sem.BBOX_THRESHOLD, sem.BBOX_CTR_THRESHOLD)
-        pseudo_reg = _threshold(det_reg, sem.PSEUDO_BBOX_SAMPLE_REG,
-                                sem.BBOX_THRESHOLD_REG, sem.BBOX_CTR_THRESHOLD_REG)
-        n_cand = det_cls.num_candidates.sum() + det_reg.num_candidates.sum()
+        with span("ubt.step.teacher_forward"):
+            dense_t = _forward(teacher, unl_k, unlabel_hw)
+        with span("ubt.step.pseudo_labels"):
+            det_cls = _decode_teacher(dense_t, unl_k, f.NMS_CRITERIA_TRAIN, unlabel_hw)
+            det_reg = _decode_teacher(dense_t, unl_k, f.NMS_CRITERIA_REG_TRAIN, unlabel_hw)
+            pseudo_cls = _threshold(det_cls, sem.PSEUDO_BBOX_SAMPLE,
+                                    sem.BBOX_THRESHOLD, sem.BBOX_CTR_THRESHOLD)
+            pseudo_reg = _threshold(det_reg, sem.PSEUDO_BBOX_SAMPLE_REG,
+                                    sem.BBOX_THRESHOLD_REG, sem.BBOX_CTR_THRESHOLD_REG)
+            n_cand = det_cls.num_candidates.sum() + det_reg.num_candidates.sum()
         return pseudo_cls, pseudo_reg, n_cand
 
     def mutual_step(state: FCOSTrainState, batch: Dict[str, Any]):
@@ -185,7 +195,8 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
             keep_rate = ema_keep
         else:
             keep_rate = 1.0
-        _ema_update(state.teacher, state.student, keep_rate)
+        with span("ubt.step.ema"):
+            _ema_update(state.teacher, state.student, keep_rate)
 
         images_l = batch["images_label_k"]
         unl_k = batch["images_unlabel_k"]
@@ -200,53 +211,56 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
                 state.teacher, unl_k, unlabel_hw
             )
 
-        label_q = strong_view(batch, "label", images_l)
-        unl_q = strong_view(batch, "unlabel", unl_k)
+        with span("ubt.step.strong_aug"):
+            label_q = strong_view(batch, "label", images_l)
+            unl_q = strong_view(batch, "unlabel", unl_k)
 
         images_all_l = torch.cat([label_q, images_l], 0)
         gt2 = batch["gt_label"].map(lambda x: torch.cat([x, x], 0))
         hw_l = torch.cat([label_hw, label_hw], 0)
-        if unl_q.shape[1:3] == images_all_l.shape[1:3]:
-            # one student forward over labeled strong+weak AND unlabeled
-            # strong: each conv runs once at batch 3B instead of 2B + B
-            dense_all = _forward(
-                state.student,
-                torch.cat([images_all_l, unl_q], 0),
-                torch.cat([hw_l, unlabel_hw], 0),
+        with span("ubt.step.student_forward"):
+            if unl_q.shape[1:3] == images_all_l.shape[1:3]:
+                # one student forward over labeled strong+weak AND unlabeled
+                # strong: each conv runs once at batch 3B instead of 2B + B
+                dense_all = _forward(
+                    state.student,
+                    torch.cat([images_all_l, unl_q], 0),
+                    torch.cat([hw_l, unlabel_hw], 0),
+                )
+                dense_l, dense_u = dense_all.split(images_all_l.shape[0])
+            else:  # mixed aspect buckets
+                dense_l = _forward(state.student, images_all_l, hw_l)
+                dense_u = _forward(state.student, unl_q, unlabel_hw)
+        with span("ubt.step.losses"):
+            sup = _sup_losses_from_dense(dense_l, images_all_l.shape[1:3], gt2, hw_l)
+
+            grid_u = compute_locations(unl_q.shape[1:3], strides, unl_q.device)
+            cls_targets = fcos_assign_targets(
+                grid_u, pseudo_cls, fcfg["num_classes"], fcfg["center_sample"],
+                fcfg["pos_radius"], ignore_near=sem.PSEUDO_CLS_IGNORE_NEAR,
+                image_hw=unlabel_hw,
             )
-            dense_l, dense_u = dense_all.split(images_all_l.shape[0])
-        else:  # mixed aspect buckets
-            dense_l = _forward(state.student, images_all_l, hw_l)
-            dense_u = _forward(state.student, unl_q, unlabel_hw)
-        sup = _sup_losses_from_dense(dense_l, images_all_l.shape[1:3], gt2, hw_l)
+            reg_targets = fcos_assign_targets(
+                grid_u, pseudo_reg, fcfg["num_classes"], fcfg["center_sample"],
+                fcfg["pos_radius"], image_hw=unlabel_hw,
+            )
+            unsup = fcos_pseudo_losses(
+                dense_u, cls_targets, reg_targets, fcfg,
+                ts_better=sem.TS_BETTER, ts_better_cert=sem.TS_BETTER_CERT,
+                consist_reg_loss=sem.CONSIST_REG_LOSS,
+            )
+            tbs = unsup.pop("teacher_better_student")
 
-        grid_u = compute_locations(unl_q.shape[1:3], strides, unl_q.device)
-        cls_targets = fcos_assign_targets(
-            grid_u, pseudo_cls, fcfg["num_classes"], fcfg["center_sample"],
-            fcfg["pos_radius"], ignore_near=sem.PSEUDO_CLS_IGNORE_NEAR,
-            image_hw=unlabel_hw,
-        )
-        reg_targets = fcos_assign_targets(
-            grid_u, pseudo_reg, fcfg["num_classes"], fcfg["center_sample"],
-            fcfg["pos_radius"], image_hw=unlabel_hw,
-        )
-        unsup = fcos_pseudo_losses(
-            dense_u, cls_targets, reg_targets, fcfg,
-            ts_better=sem.TS_BETTER, ts_better_cert=sem.TS_BETTER_CERT,
-            consist_reg_loss=sem.CONSIST_REG_LOSS,
-        )
-        tbs = unsup.pop("teacher_better_student")
-
-        # w/(w+1) weighting scheme (reference trainer.py:378-410)
-        weighted = {
-            "loss_fcos_cls": sup["loss_fcos_cls"] / (w_unsup + 1.0),
-            "loss_fcos_ctr": sup["loss_fcos_ctr"] / (w_unsup + 1.0),
-            "loss_fcos_loc": sup["loss_fcos_loc"] / (w_reg_unsup + 1.0),
-            "loss_fcos_cls_pseudo": unsup["loss_fcos_cls"] * w_unsup / (w_unsup + 1.0),
-            "loss_fcos_ctr_pseudo": unsup["loss_fcos_ctr"] * w_unsup / (w_unsup + 1.0),
-            "loss_fcos_loc_pseudo": unsup["loss_fcos_loc"] * w_reg_unsup / (w_reg_unsup + 1.0),
-        }
-        total = sum(weighted.values())
+            # w/(w+1) weighting scheme (reference trainer.py:378-410)
+            weighted = {
+                "loss_fcos_cls": sup["loss_fcos_cls"] / (w_unsup + 1.0),
+                "loss_fcos_ctr": sup["loss_fcos_ctr"] / (w_unsup + 1.0),
+                "loss_fcos_loc": sup["loss_fcos_loc"] / (w_reg_unsup + 1.0),
+                "loss_fcos_cls_pseudo": unsup["loss_fcos_cls"] * w_unsup / (w_unsup + 1.0),
+                "loss_fcos_ctr_pseudo": unsup["loss_fcos_ctr"] * w_unsup / (w_unsup + 1.0),
+                "loss_fcos_loc_pseudo": unsup["loss_fcos_loc"] * w_reg_unsup / (w_reg_unsup + 1.0),
+            }
+            total = sum(weighted.values())
         sgd_step(state, total)
 
         metrics = {k: v.detach() for k, v in sup.items()}

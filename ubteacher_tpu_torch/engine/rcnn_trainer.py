@@ -14,7 +14,10 @@ ubteacher_tpu.engine.rcnn_trainer; reference ubteacher/engine/trainer.py:
   * the EMA teacher update with the FCOS step's cadence.
 
 Both steps update `state` in place and return (state, metrics) with the
-metrics as device tensors. On the card the model runs under bf16 autocast
+metrics as device tensors. Their phases run in the FCOS step's spans
+(utils/events.py), with the RPN and ROI work under ubt.step.student_forward
+(features, RPN, proposals, box head) and ubt.step.losses (anchor and
+proposal sampling, the losses). On the card the model runs under bf16 autocast
 when TPU.COMPUTE_DTYPE is "bfloat16"; RPN and box-head outputs, losses and
 the optimizer stay in float32.
 
@@ -48,6 +51,7 @@ from ..modeling.fcos_outputs import threshold_pseudo_labels
 from ..modeling.matcher import match_anchors_batched
 from ..modeling.rpn import anchor_validity, find_top_proposals, label_anchors, rpn_losses
 from ..structures import Detections, PaddedInstances
+from ..utils.events import span
 from .common import float_images, global_blocks, hw_or_canvas, owned_draws, sgd_step, strong_view
 from .fcos_trainer import FCOSTrainState, _ema_update
 
@@ -137,11 +141,19 @@ class _RCNNParts:
     def detect(self, model, images, hw) -> Detections:
         """Test-time detections: proposals at test settings, the box head,
         fast_rcnn_inference."""
-        roi = self.roi_cfg
+        return self.inference(self.box_outputs(model, images, hw), hw)
+
+    @torch.no_grad()
+    def box_outputs(self, model, images, hw):
+        """Proposals at test settings and the box head's outputs on them."""
         pyramid, _, _, _, boxes, mask = self.proposals(model, images, hw, train=False)
-        scores, deltas, std = self.roi_box(model, pyramid, boxes)
+        return (boxes, mask) + tuple(self.roi_box(model, pyramid, boxes))
+
+    def inference(self, outputs, hw) -> Detections:
+        """box_outputs -> fast_rcnn_inference's detections."""
+        roi = self.roi_cfg
         return fast_rcnn_inference(
-            boxes, mask, scores, deltas, std, hw, self.roi_box2box,
+            *outputs, hw, self.roi_box2box,
             roi.SCORE_THRESH_TEST, roi.NMS_THRESH_TEST, self.cfg.TEST.DETECTIONS_PER_IMAGE,
             total_candidates=self.cfg.TPU.NMS_CANDIDATES,
         )
@@ -209,21 +221,25 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
         with no rows is None."""
         b = images.shape[0]
         dev = images.device
-        pyramid, logits, deltas, anch, pboxes, pmask = parts.proposals(model, images, hw, train=True)
-        n_props = pboxes.shape[1] + (gt.boxes.shape[1] if roi_cfg.PROPOSAL_APPEND_GT else 0)
-        draws = _sampling(batch, key, blocks, anch["anchors"].shape[0], n_props, dev)
-        matched = match_anchors_batched(anch["anchors"], gt.boxes, gt.mask)
-        # labeled rows are not confidence-weighted (a no-gt labeled image keeps
-        # its all-background BCE); pseudo rows are weighted by teacher score
-        labeled = label_anchors(
-            gt, rpn_cfg.BATCH_SIZE_PER_IMAGE, rpn_cfg.POSITIVE_FRACTION, draws.rpn,
-            torch.arange(b, device=dev) >= nl, anchor_validity(anch["cell_origins"], hw), matched,
-        )
-        sampled = sample_proposals(
-            pboxes, pmask, gt, roi_cfg.BATCH_SIZE_PER_IMAGE, roi_cfg.POSITIVE_FRACTION,
-            num_classes, draws.roi, append_gt=roi_cfg.PROPOSAL_APPEND_GT,
-        )
-        scores, bdeltas, bstd = parts.roi_box(model, pyramid, sampled["boxes"])
+        with span("ubt.step.student_forward"):
+            pyramid, logits, deltas, anch, pboxes, pmask = parts.proposals(model, images, hw, train=True)
+        with span("ubt.step.losses"):
+            n_props = pboxes.shape[1] + (gt.boxes.shape[1] if roi_cfg.PROPOSAL_APPEND_GT else 0)
+            draws = _sampling(batch, key, blocks, anch["anchors"].shape[0], n_props, dev)
+            matched = match_anchors_batched(anch["anchors"], gt.boxes, gt.mask)
+            # labeled rows are not confidence-weighted (a no-gt labeled image
+            # keeps its all-background BCE); pseudo rows are weighted by
+            # teacher score
+            labeled = label_anchors(
+                gt, rpn_cfg.BATCH_SIZE_PER_IMAGE, rpn_cfg.POSITIVE_FRACTION, draws.rpn,
+                torch.arange(b, device=dev) >= nl, anchor_validity(anch["cell_origins"], hw), matched,
+            )
+            sampled = sample_proposals(
+                pboxes, pmask, gt, roi_cfg.BATCH_SIZE_PER_IMAGE, roi_cfg.POSITIVE_FRACTION,
+                num_classes, draws.roi, append_gt=roi_cfg.PROPOSAL_APPEND_GT,
+            )
+        with span("ubt.step.student_forward"):
+            scores, bdeltas, bstd = parts.roi_box(model, pyramid, sampled["boxes"])
         counts = {
             "num_proposals": pmask.sum(),
             "num_rpn_samples": labeled["ok"].sum(),
@@ -231,40 +247,42 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
             "num_roi_fg": sampled["is_fg"].sum(),
         }
 
-        out = []
-        for sl, pseudo in ((slice(0, nl), False), (slice(nl, b), True)):
-            if sl.start == sl.stop:
-                out.append(None)
-                continue
+        with span("ubt.step.losses"):
+            out = []
+            for sl, pseudo in ((slice(0, nl), False), (slice(nl, b), True)):
+                if sl.start == sl.stop:
+                    out.append(None)
+                    continue
 
-            def flat(x):
-                y = x[sl]
-                return y.reshape(-1, *y.shape[2:])
+                def flat(x):
+                    y = x[sl]
+                    return y.reshape(-1, *y.shape[2:])
 
-            losses = rpn_losses(
-                anch["anchors"], logits[sl], deltas[sl], {k: v[sl] for k, v in labeled.items()},
-                parts.rpn_box2box, rpn_cfg.BATCH_SIZE_PER_IMAGE, rpn_cfg.SMOOTH_L1_BETA,
-            )
-            cls_args = (flat(scores), flat(sampled["gt_classes"]), flat(sampled["valid"]))
-            if roi_cfg.LOSS.startswith("FocalLoss"):
-                # only the plain FocalLoss weights the pseudo cls loss by the
-                # teacher's confidence (reference fast_rcnn.py:1368-1371, 1398)
-                confid = flat(sampled["gt_confid"]) if pseudo and roi_cfg.LOSS == "FocalLoss" else None
-                losses["loss_cls"] = focal_ce_loss(*cls_args, confid=confid)
-            else:  # CrossEntropy / CrossEntropy_BoundaryVar
-                losses["loss_cls"] = cross_entropy_loss(*cls_args)
-            reg_args = (flat(sampled["boxes"]), flat(sampled["gt_boxes"]), flat(bdeltas))
-            fg_valid = (flat(sampled["is_fg"]), flat(sampled["valid"]))
-            if pseudo:
-                losses["loss_box_reg"] = _pseudo_box_reg(*reg_args, flat(bstd), flat(sampled["gt_loc_std"]),
-                                                         *fg_valid)
-            elif box_cfg.BBOX_REG_LOSS_TYPE == "nlloss":
-                losses["loss_box_reg"] = box_reg_loss_nll(*reg_args, flat(bstd), *fg_valid, parts.roi_box2box,
-                                                          box_cfg.SMOOTH_L1_BETA)
-            else:  # smooth_l1
-                losses["loss_box_reg"] = box_reg_loss_smooth_l1(*reg_args, *fg_valid, parts.roi_box2box,
-                                                                box_cfg.SMOOTH_L1_BETA)
-            out.append(losses)
+                losses = rpn_losses(
+                    anch["anchors"], logits[sl], deltas[sl], {k: v[sl] for k, v in labeled.items()},
+                    parts.rpn_box2box, rpn_cfg.BATCH_SIZE_PER_IMAGE, rpn_cfg.SMOOTH_L1_BETA,
+                )
+                cls_args = (flat(scores), flat(sampled["gt_classes"]), flat(sampled["valid"]))
+                if roi_cfg.LOSS.startswith("FocalLoss"):
+                    # only the plain FocalLoss weights the pseudo cls loss by
+                    # the teacher's confidence (reference fast_rcnn.py:1368-1371,
+                    # 1398)
+                    confid = flat(sampled["gt_confid"]) if pseudo and roi_cfg.LOSS == "FocalLoss" else None
+                    losses["loss_cls"] = focal_ce_loss(*cls_args, confid=confid)
+                else:  # CrossEntropy / CrossEntropy_BoundaryVar
+                    losses["loss_cls"] = cross_entropy_loss(*cls_args)
+                reg_args = (flat(sampled["boxes"]), flat(sampled["gt_boxes"]), flat(bdeltas))
+                fg_valid = (flat(sampled["is_fg"]), flat(sampled["valid"]))
+                if pseudo:
+                    losses["loss_box_reg"] = _pseudo_box_reg(*reg_args, flat(bstd), flat(sampled["gt_loc_std"]),
+                                                             *fg_valid)
+                elif box_cfg.BBOX_REG_LOSS_TYPE == "nlloss":
+                    losses["loss_box_reg"] = box_reg_loss_nll(*reg_args, flat(bstd), *fg_valid, parts.roi_box2box,
+                                                              box_cfg.SMOOTH_L1_BETA)
+                else:  # smooth_l1
+                    losses["loss_box_reg"] = box_reg_loss_smooth_l1(*reg_args, *fg_valid, parts.roi_box2box,
+                                                                    box_cfg.SMOOTH_L1_BETA)
+                out.append(losses)
         return out[0], out[1], counts
 
     def _labeled_views(batch, label_q, label_hw):
@@ -289,7 +307,8 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
         batch = float_images(batch)
         images_l = batch["images_label_k"]
         label_hw = hw_or_canvas(batch, "label_hw", images_l)
-        label_q = strong_view(batch, "label", images_l) if sup_strong else None
+        with span("ubt.step.strong_aug"):
+            label_q = strong_view(batch, "label", images_l) if sup_strong else None
         images, gt2, hw2, blocks = _labeled_views(batch, label_q, label_hw)
         sup, _, counts = _branches(state.student, images, gt2, hw2, batch, "sup", blocks, images.shape[0])
         total = sum(sup.values())
@@ -308,7 +327,8 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
             keep_rate = sem.EMA_KEEP_RATE
         else:
             keep_rate = 1.0
-        _ema_update(state.teacher, state.student, keep_rate)
+        with span("ubt.step.ema"):
+            _ema_update(state.teacher, state.student, keep_rate)
 
         unl_k = batch["images_unlabel_k"]
         unlabel_hw = hw_or_canvas(batch, "unlabel_hw", unl_k)
@@ -317,11 +337,15 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
             # positive control: the unlabeled stream's ground truth
             pseudo = batch["gt_unlabel"]
         else:
-            dets = parts.detect(state.teacher, unl_k, unlabel_hw)
-            pseudo = threshold_pseudo_labels(dets, sem.BBOX_THRESHOLD, cfg.TPU.MAX_PSEUDO)
+            with span("ubt.step.teacher_forward"):
+                outputs = parts.box_outputs(state.teacher, unl_k, unlabel_hw)
+            with span("ubt.step.pseudo_labels"):
+                dets = parts.inference(outputs, unlabel_hw)
+                pseudo = threshold_pseudo_labels(dets, sem.BBOX_THRESHOLD, cfg.TPU.MAX_PSEUDO)
 
-        label_q = strong_view(batch, "label", batch["images_label_k"]) if sup_strong else None
-        unl_q = strong_view(batch, "unlabel", unl_k)
+        with span("ubt.step.strong_aug"):
+            label_q = strong_view(batch, "label", batch["images_label_k"]) if sup_strong else None
+            unl_q = strong_view(batch, "unlabel", unl_k)
         images_l, gt2, hw_l2, blocks = _labeled_views(batch, label_q, label_hw)
         if unl_q.shape[1:3] == images_l.shape[1:3]:
             # one student forward over labeled strong + weak and unlabeled
@@ -338,12 +362,13 @@ def make_rcnn_train_steps(cfg) -> Tuple[Callable, Callable]:
                                            [unl_q.shape[0]], 0)
             counts = {k: v + counts_u[k] for k, v in counts.items()}
 
-        weighted = dict(sup)
-        weighted["loss_rpn_loc_pseudo"] = unsup["loss_rpn_loc"] * 0.0
-        weighted["loss_box_reg_pseudo"] = unsup["loss_box_reg"] * sem.UNSUP_REG_LOSS_WEIGHT
-        weighted["loss_rpn_cls_pseudo"] = unsup["loss_rpn_cls"] * sem.UNSUP_LOSS_WEIGHT
-        weighted["loss_cls_pseudo"] = unsup["loss_cls"] * sem.UNSUP_LOSS_WEIGHT
-        total = sum(weighted.values())
+        with span("ubt.step.losses"):
+            weighted = dict(sup)
+            weighted["loss_rpn_loc_pseudo"] = unsup["loss_rpn_loc"] * 0.0
+            weighted["loss_box_reg_pseudo"] = unsup["loss_box_reg"] * sem.UNSUP_REG_LOSS_WEIGHT
+            weighted["loss_rpn_cls_pseudo"] = unsup["loss_rpn_cls"] * sem.UNSUP_LOSS_WEIGHT
+            weighted["loss_cls_pseudo"] = unsup["loss_cls"] * sem.UNSUP_LOSS_WEIGHT
+            total = sum(weighted.values())
         sgd_step(state, total)
 
         metrics = _detached(sup)

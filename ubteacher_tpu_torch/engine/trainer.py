@@ -31,7 +31,16 @@ Metrics per iteration (metrics.json, the JAX trainer's keys): the step's
 losses and counts; `time`, host seconds from the step's dispatch to its
 metrics on the host (the next batch's fetch and copy overlap the step inside
 it); `data_time`, host seconds spent taking batches from the loader and
-starting their copies; `corrupt_rows_total`, samples replaced so far.
+starting their copies; `corrupt_rows_total`, samples replaced so far; and
+what the iteration's spans (utils/events.py `span`, named `ubt.*`) read:
+`queue_wait_time` (blocked on the loader's queue), `h2d_time` (pinning the
+next batch and starting its copy), `dispatch_time` (the step call),
+`backward_time` (its backward), `fetch_time` (the metrics fetch: the
+iteration's wait for the device), in wall seconds; `dispatch_cpu_time`, the
+loop thread's CPU seconds in the step outside backward (whose kernels
+autograd's own thread enqueues); `loader_cpu_time` and `loader_images`, the
+decode threads' CPU seconds reading and weak-augmenting images, and how many;
+`loader_queue_depth`, batches ready when the loop asked for one.
 """
 
 from __future__ import annotations
@@ -60,7 +69,7 @@ from ..evaluation import inference_on_dataset
 from ..parallel import all_reduce_sum, broadcast_module, is_main_process, local_rank, rank, world_size
 from ..solver import build_optimizer
 from ..structures import PaddedInstances
-from ..utils.events import EventStorage, NullEventStorage, setup_logger
+from ..utils.events import EventStorage, NullEventStorage, setup_logger, span, span_totals
 from .fcos_trainer import FCOSTrainState, make_fcos_train_steps
 
 logger = logging.getLogger("ubteacher_tpu_torch")
@@ -178,6 +187,25 @@ def _tensors(v) -> Iterator[torch.Tensor]:
 
 # metrics every rank computes alike (not shares of a global figure)
 REPLICATED_METRICS = ("ema_rate_1000x",)
+
+
+def span_scalars(before: Dict, after: Dict) -> Dict[str, float]:
+    """The iteration's span figures: the change of `span_totals()` from
+    `before` to `after` (see the module's docstring)."""
+    def delta(name: str, i: int) -> float:
+        return after.get(name, (0, 0.0, 0.0))[i] - before.get(name, (0, 0.0, 0.0))[i]
+
+    return {
+        "queue_wait_time": delta("ubt.loader.queue_wait", 1),
+        "h2d_time": delta("ubt.train.h2d", 1),
+        "dispatch_time": delta("ubt.step", 1),
+        "backward_time": delta("ubt.step.backward", 1),
+        "fetch_time": delta("ubt.train.metrics_fetch", 1),
+        "dispatch_cpu_time": delta("ubt.step", 2) - delta("ubt.step.backward", 2),
+        "loader_cpu_time": delta("ubt.loader.read", 2) + delta("ubt.loader.augment", 2),
+        "loader_images": delta("ubt.loader.read", 0),
+        "loader_queue_depth": float(loader_mod.PREFETCH["ready"]),
+    }
 
 
 def host_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -344,9 +372,11 @@ class UBTeacherTrainer:
         def fetch():
             batch = next(data_iter)
             batch["rng"] = self.generator
-            return copier.send(batch)
+            with span("ubt.train.h2d"):
+                return copier.send(batch)
 
         pending = None
+        totals = span_totals()
         try:
             for it in range(self.start_iter, self.max_iter):
                 if profile_dir and it == self.start_iter + 10:
@@ -357,31 +387,40 @@ class UBTeacherTrainer:
                 t_data = time.perf_counter()
                 if pending is None:
                     pending = fetch()
-                batch = copier.take(pending)
-                data_time = time.perf_counter() - t_data
-                # host-side branch on the iteration, like the reference's
-                # python `if` (trainer.py:191/212)
-                t_step = time.perf_counter()
-                step = self.burnin_step if it < burn_up else self.mutual_step
-                self.state, metrics = step(self.state, batch)
-                # the next batch's fetch and copy overlap the step on the device
-                t_data = time.perf_counter()
-                pending = fetch() if it + 1 < self.max_iter else None
-                data_time += time.perf_counter() - t_data
-                scalars = host_metrics(metrics)
-                # the reference's hooks.IterationTimer "time" (trainer.py:509)
-                scalars["time"] = time.perf_counter() - t_step
-                scalars["data_time"] = data_time
-                scalars["corrupt_rows_total"] = float(loader_mod.DECODE_STATS["corrupt"])
-                self.storage.put_scalars(**scalars)
-                if cfg.VIS_PERIOD and (it + 1) % cfg.VIS_PERIOD == 0 and is_main_process():
-                    self._save_visualization(it + 1, batch, mutual=it >= burn_up)
-                self.storage.step()
-                nxt = it + 1
-                if nxt % cfg.SOLVER.CHECKPOINT_PERIOD == 0 or nxt == self.max_iter:
-                    self.checkpointer.save(nxt, self.checkpoint_state())
-                if cfg.TEST.EVAL_PERIOD and nxt % cfg.TEST.EVAL_PERIOD == 0:
-                    self._eval_and_log()
+                with span("ubt.train.iteration"):
+                    batch = copier.take(pending)
+                    data_time = time.perf_counter() - t_data
+                    # host-side branch on the iteration, like the reference's
+                    # python `if` (trainer.py:191/212)
+                    t_step = time.perf_counter()
+                    step = self.burnin_step if it < burn_up else self.mutual_step
+                    with span("ubt.step"):
+                        self.state, metrics = step(self.state, batch)
+                    # the next batch's fetch and copy overlap the step on the device
+                    t_data = time.perf_counter()
+                    pending = fetch() if it + 1 < self.max_iter else None
+                    data_time += time.perf_counter() - t_data
+                    with span("ubt.train.metrics_fetch"):
+                        scalars = host_metrics(metrics)
+                    # the reference's hooks.IterationTimer "time" (trainer.py:509)
+                    scalars["time"] = time.perf_counter() - t_step
+                    scalars["data_time"] = data_time
+                    scalars["corrupt_rows_total"] = float(loader_mod.DECODE_STATS["corrupt"])
+                    now = span_totals()
+                    scalars.update(span_scalars(totals, now))
+                    totals = now
+                    with span("ubt.train.bookkeeping"):
+                        self.storage.put_scalars(**scalars)
+                        if cfg.VIS_PERIOD and (it + 1) % cfg.VIS_PERIOD == 0 and is_main_process():
+                            self._save_visualization(it + 1, batch, mutual=it >= burn_up)
+                        self.storage.step()
+                    nxt = it + 1
+                    if nxt % cfg.SOLVER.CHECKPOINT_PERIOD == 0 or nxt == self.max_iter:
+                        with span("ubt.train.checkpoint"):
+                            self.checkpointer.save(nxt, self.checkpoint_state())
+                    if cfg.TEST.EVAL_PERIOD and nxt % cfg.TEST.EVAL_PERIOD == 0:
+                        with span("ubt.train.eval"):
+                            self._eval_and_log()
         finally:
             if profiler is not None:
                 self._stop_profiler(profiler, profile_dir)

@@ -47,6 +47,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.events import span
+
 # seconds a collective (and the rendezvous) waits for the other ranks before
 # it fails the run: a rank that died must not hang the others
 DEFAULT_TIMEOUT = 600.0
@@ -144,13 +146,15 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
 def reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
     """Sum the parameters' gradients over the ranks, in place, through one
     flat all_reduce. Parameters without a gradient stay without one (the
-    ranks run one graph, so they agree on which those are)."""
+    ranks run one graph, so they agree on which those are). Timed as the
+    step's `ubt.step.grad_allreduce` span."""
     if not is_distributed():
         return
-    grads = [p.grad for p in params if p.grad is not None]
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
-    torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)])
+    with span("ubt.step.grad_allreduce"):
+        grads = [p.grad for p in params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)])
 
 
 @torch.no_grad()

@@ -6,6 +6,10 @@ accumulate per step; the console and JSON-lines writers flush the means
 every `log_period` steps, to OUTPUT_DIR/metrics.json with the keys the JAX
 package writes. The trainer hands over each step's metrics as host floats
 fetched in one transfer.
+
+Spans (`span`) time the phases of the trainer's loop, its steps and its
+loader: each adds to SPAN_STATS, and while a torch profiler records on its
+thread, it also puts its range into the profiler's trace.
 """
 
 from __future__ import annotations
@@ -13,11 +17,61 @@ from __future__ import annotations
 import json
 import logging
 import os
+import threading
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, List, Tuple
+
+import torch
 
 logger = logging.getLogger("ubteacher_tpu_torch")
+
+# every span of this process so far: name -> [count, wall seconds, CPU
+# seconds of the thread that ran it]; the loader's threads write to it too
+SPAN_STATS: Dict[str, List[float]] = {}
+_SPAN_LOCK = threading.Lock()
+
+
+class span:
+    """`with span(name):` adds one count, the wall seconds
+    (time.perf_counter) and the calling thread's CPU seconds
+    (time.thread_time) to SPAN_STATS[name]. While a torch profiler records
+    on the calling thread (the one that started it: the loop's, not the
+    loader's), it also opens `record_function(name)`, so the range lands in
+    the trace on the profiler's clock, beside the device rows its launches
+    feed. Spans mark phases, never single ops: a span costs about
+    ten microseconds."""
+
+    __slots__ = ("name", "_rf", "_t0", "_c0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        self._rf = None
+        if torch.autograd._profiler_enabled():  # on this thread
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        self._c0 = time.thread_time()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        wall = time.perf_counter() - self._t0
+        cpu = time.thread_time() - self._c0
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        with _SPAN_LOCK:
+            stats = SPAN_STATS.setdefault(self.name, [0, 0.0, 0.0])
+            stats[0] += 1
+            stats[1] += wall
+            stats[2] += cpu
+
+
+def span_totals() -> Dict[str, Tuple[int, float, float]]:
+    """A copy of SPAN_STATS: name -> (count, wall s, CPU s)."""
+    with _SPAN_LOCK:
+        return {k: tuple(v) for k, v in SPAN_STATS.items()}
 
 
 class EventStorage:
