@@ -128,3 +128,12 @@ def test_iteration_scalars_read_the_spans(traced_run):
         assert row["time"] >= row["dispatch_time"] >= row["backward_time"] > 0, row
         assert row["dispatch_cpu_time"] > 0
     assert sum(row["loader_images"] for row in rows) >= 8  # two batches of 2 + 2, and what was read ahead
+
+
+def test_the_step_runs_eagerly_on_the_cpu(traced_run):
+    """A CUDA graph is the card's: on the CPU every phase of the mutual step
+    runs (and is timed) at every step, and no step is a replay."""
+    _, rows, change = traced_run
+    assert [row["step_graph_replays"] for row in rows] == [0, 0]
+    assert change.get("ubt.step.graph_capture", 0) == change.get("ubt.step.graph_replay", 0) == 0
+    assert change["ubt.step.teacher_forward"] == change["ubt.step.ema"] == 1

@@ -136,14 +136,16 @@ def test_profile_grouping_of_synthetic_rows():
 def test_device_rows_take_the_devices_rows_per_step():
     from torch.autograd import DeviceType
 
-    def ev(key, device_type, self_device_us, count, self_cpu_us=0.0):
+    def ev(key, device_type, self_device_us, count, self_cpu_us=0.0, annotation=False):
         return types.SimpleNamespace(key=key, device_type=device_type, self_device_time_total=self_device_us,
-                                     count=count, self_cpu_time_total=self_cpu_us)
+                                     count=count, self_cpu_time_total=self_cpu_us, is_user_annotation=annotation)
 
     prof = types.SimpleNamespace(key_averages=lambda: [
         ev("aten::conv2d", DeviceType.CPU, 3000.0, 6, 900.0),  # an op's row repeats its kernels: left out
         ev("xmma_fprop", DeviceType.CUDA, 3000.0, 6), ev("Memset (Device)", DeviceType.CUDA, 30.0, 3),
         ev("idle_kernel", DeviceType.CUDA, 0.0, 3),
+        # a span over the kernels on the device's timeline: left out
+        ev("ubt.step.graph_replay", DeviceType.CUDA, 3030.0, 3, annotation=True),
     ])
     assert profile_step.device_rows(prof, 3) == [(1.0, 2.0, "xmma_fprop"), (0.01, 1.0, "Memset (Device)")]
     assert profile_step.device_rows(prof, 3, on_device=False) == [(0.3, 2.0, "aten::conv2d")]

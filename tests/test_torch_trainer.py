@@ -42,6 +42,7 @@ from torch_parity import (  # noqa: F401 (fixtures: autouse, or named in usefixt
     tmp_budget,
     trainer_datasets,
 )
+from ubteacher_tpu_torch.data import loader as t_loader
 
 CLS_BIAS = 0.5
 # the runs that are not compared with JAX: 48-pixel images on 64x64 canvases
@@ -67,7 +68,9 @@ def _fcos_draws(burn_up):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory, request):
     """Both packages' 4-iteration runs -> (JAX metrics lines, port metrics
-    lines, port trainer)."""
+    lines, port trainer, the port's corrupt-row total before its run: a
+    process-wide count, which loader tests run earlier in the same process
+    have moved)."""
     from ubteacher_tpu.engine.trainer import UBTeacherTrainer as JaxTrainer
     from ubteacher_tpu.parallel import replicate
     from ubteacher_tpu_torch.checkpoint import params_from_jax
@@ -92,17 +95,19 @@ def runs(tmp_path_factory, request):
         module.load_state_dict(params_from_jax(params))
     tt.loader = JaxKeyDraws(tt.loader, _fcos_draws(tcfg.SEMISUPNET.BURN_UP_STEP))
     tt.storage.log_period = 1
+    corrupt_before = float(t_loader.DECODE_STATS["corrupt"])
     tt.train()
-    return read_metrics(jcfg.OUTPUT_DIR), read_metrics(tcfg.OUTPUT_DIR), tt
+    return read_metrics(jcfg.OUTPUT_DIR), read_metrics(tcfg.OUTPUT_DIR), tt, corrupt_before
 
 
 def test_metrics_per_iteration_match_jax(runs):
-    j_lines, t_lines, _ = runs
+    j_lines, t_lines, _, corrupt_before = runs
     assert len(j_lines) == len(t_lines) == 4
     for i, (j, t) in enumerate(zip(j_lines, t_lines)):
         assert t["iteration"] == j["iteration"] == i + 1
         assert set(j) <= set(t), set(j) - set(t)
-        assert t["time"] > 0 and t["data_time"] >= 0 and t["corrupt_rows_total"] == 0
+        # no sample of this run replaced
+        assert t["time"] > 0 and t["data_time"] >= 0 and t["corrupt_rows_total"] == corrupt_before
         for k in EXACT:
             if k in j:
                 assert t[k] == j[k], (i, k)
@@ -116,7 +121,7 @@ def test_metrics_per_iteration_match_jax(runs):
 
 
 def test_run_writes_checkpoint_and_evaluates(runs):
-    _, _, trainer = runs
+    _, _, trainer, _ = runs
     assert trainer.state.step == 4
     assert trainer.checkpointer.steps() == [4]
     results = trainer.test(model="teacher")

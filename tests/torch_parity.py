@@ -560,7 +560,8 @@ def read_metrics(output_dir):
 # the trainer's per-iteration host timings read from its spans
 # (engine/trainer.py:span_scalars): wall-clock and process-wide, never compared
 SPAN_SCALARS = ("queue_wait_time", "h2d_time", "dispatch_time", "backward_time", "fetch_time",
-                "dispatch_cpu_time", "loader_cpu_time", "loader_images", "loader_queue_depth")
+                "dispatch_cpu_time", "loader_cpu_time", "loader_images", "loader_queue_depth",
+                "step_graph_replays")
 
 
 # torch's intra-op threads while a module's trainer runs: one per core is

@@ -18,6 +18,13 @@ Each phase runs in a span (utils/events.py): ubt.step.ema, .teacher_forward,
 .pseudo_labels, .strong_aug, .student_forward, .losses, and sgd_step's
 .backward, .grad_allreduce and .optimizer.
 
+On a CUDA device at world size 1 the mutual step's device work is one CUDA
+graph per batch shape (engine/step_graph.py): captured after the first step
+of that shape, replayed by every later one, so the host launches a few dozen
+kernels a step instead of thousands. The host's per-step values reach it
+through device tensors: the EMA's rates, the learning rates, the generator's
+state. Replayed steps time the phases' spans no more (they time the capture).
+
 On the card the model runs under bf16 autocast when TPU.COMPUTE_DTYPE is
 "bfloat16"; head outputs, losses and the optimizer stay in float32.
 """
@@ -26,7 +33,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -42,10 +49,12 @@ from ..modeling.fcos_outputs import (
     threshold_pseudo_labels,
     threshold_pseudo_labels_cls_ctr,
 )
+from ..parallel import world_size
 from ..solver.build import Optimizer
 from ..structures import PaddedInstances
 from ..utils.events import span
-from .common import float_images, hw_or_canvas, sgd_step, strong_view
+from .common import float_images, hw_or_canvas, image_hw, sgd_step, strong_view
+from .step_graph import StepGraphs
 
 
 @dataclasses.dataclass
@@ -54,6 +63,10 @@ class FCOSTrainState:
     student: nn.Module
     teacher: nn.Module
     optimizer: Optimizer
+    # the EMA's device rates (ema_rates) and the mutual step's CUDA graphs
+    # (engine/step_graph.py), made at the first mutual step that needs them
+    ema_rates: Optional[torch.Tensor] = None
+    graphs: Optional[StepGraphs] = None
 
     @staticmethod
     def create(model: nn.Module, optimizer: Optimizer) -> "FCOSTrainState":
@@ -63,17 +76,49 @@ class FCOSTrainState:
 
 
 @torch.no_grad()
-def _ema_update(teacher: nn.Module, student: nn.Module, keep_rate: float) -> None:
+def _ema_update(teacher: nn.Module, student: nn.Module, keep_rate) -> None:
     """teacher <- student * (1 - keep) + teacher * keep, in place, in float32
-    arithmetic as the JAX package computes it (reference trainer.py:477-482)."""
-    if keep_rate == 1.0:
-        return
-    keep = torch.tensor(keep_rate, dtype=torch.float32)
+    arithmetic as the JAX package computes it (reference trainer.py:477-482).
+
+    keep_rate is a float, or a float32 device tensor (keep, 1 - keep) that
+    the host fills before each step (ema_rates): the form a CUDA graph
+    replays at any rate, with the same products (at keep 1.0 the teacher
+    times 1 plus the student times 0 is the teacher, bit for bit)."""
     t_params = list(teacher.parameters())
     s_params = list(student.parameters())
-    s_part = torch._foreach_mul(s_params, float(1.0 - keep))
-    torch._foreach_mul_(t_params, float(keep))
+    if isinstance(keep_rate, torch.Tensor):
+        keep, rest = keep_rate[0], keep_rate[1]
+    elif keep_rate == 1.0:
+        return
+    else:
+        keep = torch.tensor(keep_rate, dtype=torch.float32)
+        keep, rest = float(keep), float(1.0 - keep)
+    s_part = torch._foreach_mul(s_params, rest)
+    torch._foreach_mul_(t_params, keep)
     torch._foreach_add_(t_params, s_part)
+
+
+def ema_rates(state: FCOSTrainState, keep_rate: float) -> torch.Tensor:
+    """The state's device tensor (keep, 1 - keep), filled for this step with
+    the float32 values _ema_update takes from a float keep rate."""
+    if state.ema_rates is None:
+        device = next(state.teacher.parameters()).device
+        state.ema_rates = torch.zeros(2, dtype=torch.float32, device=device)
+    keep = torch.tensor(keep_rate, dtype=torch.float32)
+    state.ema_rates[0].fill_(float(keep))
+    state.ema_rates[1].fill_(float(1.0 - keep))
+    return state.ema_rates
+
+
+def _graphable(batch: Dict[str, Any]) -> bool:
+    """Whether the mutual step runs as a CUDA graph: on a CUDA device, at
+    world size 1 (no cell measures a captured all-reduce), with the strong
+    augmentation drawn from a CUDA generator in the batch rather than handed
+    in."""
+    rng = batch.get("rng")
+    return (batch["images_label_k"].is_cuda and world_size() == 1 and isinstance(rng, torch.Generator)
+            and rng.device.type == "cuda" and batch.get("strong_label") is None
+            and batch.get("strong_unlabel") is None)
 
 
 def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
@@ -112,6 +157,10 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
     w_reg_unsup = sem.UNSUP_REG_LOSS_WEIGHT
     max_pseudo = cfg.TPU.MAX_PSEUDO
     bf16 = cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+
+    # the largest train canvas: the graphs' image buffers hold a batch of it
+    canvas_area = max(h * w for h, w in [tuple(cfg.TPU.CANVAS_LANDSCAPE), tuple(cfg.TPU.CANVAS_PORTRAIT)]
+                      + [tuple(c) for c in cfg.TPU.EXTRA_TRAIN_CANVASES])
 
     def _forward(model: nn.Module, images: torch.Tensor, hw: torch.Tensor):
         with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=bf16):
@@ -184,19 +233,14 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
             n_cand = det_cls.num_candidates.sum() + det_reg.num_candidates.sum()
         return pseudo_cls, pseudo_reg, n_cand
 
-    def mutual_step(state: FCOSTrainState, batch: Dict[str, Any]):
-        """Mutual-learning step (reference trainer.py:212-429)."""
+    def _mutual_body(state: FCOSTrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The mutual step's device work, from the EMA to the update: what a
+        CUDA graph captures. Reads the host's per-step values from device
+        tensors (state.ema_rates, the learning rates of the optimizer's
+        prepared() update) and draws from batch["rng"]."""
         batch = float_images(batch)
-        # EMA cadence (reference trainer.py:213-222): copy at the burn-in
-        # boundary (keep 0), EMA every TEACHER_UPDATE_ITER, else hold
-        if state.step == burn_up:
-            keep_rate = 0.0
-        elif (state.step - burn_up) % update_iter == 0:
-            keep_rate = ema_keep
-        else:
-            keep_rate = 1.0
         with span("ubt.step.ema"):
-            _ema_update(state.teacher, state.student, keep_rate)
+            _ema_update(state.teacher, state.student, state.ema_rates)
 
         images_l = batch["images_label_k"]
         unl_k = batch["images_unlabel_k"]
@@ -267,10 +311,42 @@ def make_fcos_train_steps(cfg) -> Tuple[Callable, Callable]:
         metrics.update({k + "_pseudo": v.detach() for k, v in unsup.items()})
         metrics["teacher_better_student"] = tbs.detach()
         metrics["total_loss"] = total.detach()
-        metrics["ema_rate_1000x"] = torch.tensor(keep_rate, dtype=torch.float32) * 1000.0
         metrics["num_pseudo_cls"] = pseudo_cls.mask.sum()
         metrics["num_pseudo_reg"] = pseudo_reg.mask.sum()
         metrics["num_nms_candidates"] = n_cand
+        return metrics
+
+    def mutual_step(state: FCOSTrainState, batch: Dict[str, Any]):
+        """Mutual-learning step (reference trainer.py:212-429). The host sets
+        the step's EMA rate and learning rate on the device; the device
+        work runs eagerly, or, on a CUDA device at world size 1 with the
+        draws taken from batch["rng"], as the CUDA graph of the batch's
+        shapes (engine/step_graph.py)."""
+        # EMA cadence (reference trainer.py:213-222): copy at the burn-in
+        # boundary (keep 0), EMA every TEACHER_UPDATE_ITER, else hold
+        if state.step == burn_up:
+            keep_rate = 0.0
+        elif (state.step - burn_up) % update_iter == 0:
+            keep_rate = ema_keep
+        else:
+            keep_rate = 1.0
+        ema_rates(state, keep_rate)
+        batch = dict(batch)
+        for hw_key, key in (("label_hw", "images_label_k"), ("unlabel_hw", "images_unlabel_k")):
+            if batch.get(hw_key) is None:  # made here: a graph cannot copy from the host
+                batch[hw_key] = image_hw(batch[key])
+        step = state.step
+        with state.optimizer.prepared():
+            if _graphable(batch):
+                if state.graphs is None:
+                    state.graphs = StepGraphs(batch["images_label_k"].device, canvas_area)
+                metrics = state.graphs.step(lambda b: _mutual_body(state, b), batch, state.optimizer)
+            else:
+                metrics = _mutual_body(state, batch)
+        # the body's sgd_step counts the step where it runs: once eagerly,
+        # again in a capture, not at all in a replay
+        state.step = step + 1
+        metrics["ema_rate_1000x"] = torch.tensor(keep_rate, dtype=torch.float32) * 1000.0
         return state, metrics
 
     return burnin_step, mutual_step

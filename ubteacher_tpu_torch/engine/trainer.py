@@ -40,7 +40,8 @@ iteration's wait for the device), in wall seconds; `dispatch_cpu_time`, the
 loop thread's CPU seconds in the step outside backward (whose kernels
 autograd's own thread enqueues); `loader_cpu_time` and `loader_images`, the
 decode threads' CPU seconds reading and weak-augmenting images, and how many;
-`loader_queue_depth`, batches ready when the loop asked for one.
+`loader_queue_depth`, batches ready when the loop asked for one;
+`step_graph_replays`, steps run as a replayed CUDA graph (engine/step_graph.py).
 """
 
 from __future__ import annotations
@@ -205,6 +206,7 @@ def span_scalars(before: Dict, after: Dict) -> Dict[str, float]:
         "loader_cpu_time": delta("ubt.loader.read", 2) + delta("ubt.loader.augment", 2),
         "loader_images": delta("ubt.loader.read", 0),
         "loader_queue_depth": float(loader_mod.PREFETCH["ready"]),
+        "step_graph_replays": delta("ubt.step.graph_replay", 0),
     }
 
 

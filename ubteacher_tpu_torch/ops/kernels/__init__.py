@@ -29,3 +29,11 @@ def reset_launch_counts() -> None:
     for mod in _MODULES:
         for name in mod.LAUNCHES:
             mod.LAUNCHES[name] = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Adds {kernel name: launches} to the counters: what a CUDA graph's
+    replay launches, which no wrapper counts (engine/step_graph.py)."""
+    for mod in _MODULES:
+        for name in mod.LAUNCHES:
+            mod.LAUNCHES[name] += counts.get(name, 0)

@@ -10,8 +10,9 @@ JAX package reaches the same end with stop_gradient plus an optax mask).
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -98,7 +99,21 @@ def optimizer_hyperparams(cfg, name: str) -> Tuple[float, float]:
 class Optimizer:
     """SGD + momentum over the model's trainable parameters, one parameter
     group per (weight decay, lr factor) pair, with the schedule evaluated at
-    the update count and optional gradient clipping first."""
+    the update count and optional gradient clipping first.
+
+    An update is torch.optim.SGD's arithmetic (weight decay, momentum,
+    nesterov), written as foreach ops whose every changing input lives on
+    the device, so that a CUDA graph can capture it once and replay it at
+    every count: `prepare` is the host's half (the count's learning rate
+    into one device scalar a group, SGD's state pointed at the optimizer's
+    own momentum buffers), `update` the device's, and `step` both; inside
+    `prepared()`, which runs `prepare` once, `step` is `update` alone (what
+    a captured step calls). `sgd` keeps the groups and the state, so
+    state_dict() keeps torch's format; its state's
+    "momentum_buffer" of a parameter is the optimizer's own buffer, and one
+    put there in its place (load_state_dict) or taken away (state.clear())
+    is copied in or zeroed by the next `prepare`: a zeroed buffer gives
+    torch's first update, buf = grad, exactly."""
 
     def __init__(self, cfg, model: nn.Module):
         self.schedule = build_lr_schedule(cfg)
@@ -117,20 +132,117 @@ class Optimizer:
             nesterov=cfg.SOLVER.NESTEROV,
         )
         self.count = 0
+        self.grads: Optional[List[torch.Tensor]] = None  # fixed gradient tensors (static_grads)
+        self._neg_lr: Optional[List[torch.Tensor]] = None  # -lr of each group, on the device
+        self._bufs: Optional[List[List[torch.Tensor]]] = None  # each group's momentum buffers
+        self._held = False  # inside prepared(): step() is update() alone
 
     def zero_grad(self) -> None:
-        self.sgd.zero_grad(set_to_none=True)
+        """No gradients; or, once they are fixed (static_grads), each
+        parameter's own gradient tensor zeroed in place."""
+        if self.grads is None:
+            self.sgd.zero_grad(set_to_none=True)
+        else:
+            self.bind_grads()
+            torch._foreach_zero_(self.grads)
 
-    def step(self) -> None:
+    def static_grads(self) -> bool:
+        """Fix each trained parameter's gradient at the tensor it holds now,
+        zeroed in place by every later zero_grad, so that a captured
+        backward accumulates into tensors that outlive the capture. False,
+        and nothing fixed, where a parameter holds no gradient (an unused
+        parameter, which torch's SGD skips and a fixed zero would not)."""
+        if self.grads is None:
+            if any(p.grad is None for p in self.params):
+                return False
+            self.grads = [p.grad for p in self.params]
+        return True
+
+    def bind_grads(self) -> None:
+        """Point each parameter's .grad back at its fixed tensor (a caller
+        may have set it to another, or to None)."""
+        for p, g in zip(self.params, self.grads):
+            if p.grad is not g:
+                p.grad = g
+
+    def prepare(self) -> None:
+        """The host's half of update `count`: each group's learning rate
+        into its device scalar, the momentum buffers into SGD's state."""
+        groups = self.sgd.param_groups
+        if self._neg_lr is None:
+            device = self.params[0].device if self.params else torch.device("cpu")
+            self._neg_lr = [torch.zeros((), dtype=torch.float32, device=device) for _ in groups]
+            if any(g["momentum"] for g in groups):
+                self._bufs = [[torch.zeros_like(p) for p in g["params"]] for g in groups]
+        lr = self.schedule(self.count)
+        for group, neg_lr in zip(groups, self._neg_lr):
+            group["lr"] = lr * group["lr_factor"]
+            neg_lr.fill_(-group["lr"])
+        if self._bufs is not None:
+            self._own_momentum_buffers()
+        self.count += 1
+
+    def _own_momentum_buffers(self) -> None:
+        state = self.sgd.state
+        zeroed, held, own = [], [], []
+        for group, bufs in zip(self.sgd.param_groups, self._bufs):
+            for p, buf in zip(group["params"], bufs):
+                was = state[p].get("momentum_buffer")
+                if was is buf:
+                    continue
+                if was is None:
+                    zeroed.append(buf)
+                else:
+                    held.append(was)
+                    own.append(buf)
+                state[p]["momentum_buffer"] = buf
+        if zeroed:
+            torch._foreach_zero_(zeroed)
+        if own:
+            torch._foreach_copy_(own, held)
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """The device's half: clip, then torch.optim.SGD's update with the
+        prepared learning rates. A parameter without a gradient is left as
+        it is, as torch leaves it."""
         if self.clip_type == "value":
             nn.utils.clip_grad_value_(self.params, self.clip_value)
         elif self.clip_type is not None:
             nn.utils.clip_grad_norm_(self.params, self.clip_value, norm_type=2.0)
-        lr = self.schedule(self.count)
-        for group in self.sgd.param_groups:
-            group["lr"] = lr * group["lr_factor"]
-        self.sgd.step()
-        self.count += 1
+        bufs_of = self._bufs or [None] * len(self._neg_lr)
+        for group, neg_lr, all_bufs in zip(self.sgd.param_groups, self._neg_lr, bufs_of):
+            have = [i for i, p in enumerate(group["params"]) if p.grad is not None]
+            params = [group["params"][i] for i in have]
+            if not params:
+                continue
+            d = [p.grad for p in params]
+            if group["weight_decay"]:
+                d = torch._foreach_add(d, params, alpha=group["weight_decay"])
+            momentum = group["momentum"]
+            if momentum:
+                bufs = [all_bufs[i] for i in have]
+                torch._foreach_mul_(bufs, momentum)
+                torch._foreach_add_(bufs, d, alpha=1 - group["dampening"])
+                d = torch._foreach_add(d, bufs, alpha=momentum) if group["nesterov"] else bufs
+            # param + (-lr) * d in one rounding, as torch's add(alpha=-lr)
+            torch._foreach_addcmul_(params, d, [neg_lr] * len(params))
+
+    def step(self) -> None:
+        if not self._held:
+            self.prepare()
+        self.update()
+
+    @contextlib.contextmanager
+    def prepared(self) -> Iterator[None]:
+        """prepare() now, for the one update that the steps inside make: a
+        step run eagerly, its capture as a CUDA graph, or a replay of one."""
+        self.prepare()
+        self._held = True
+        try:
+            yield
+        finally:
+            self._held = False
 
     def state_dict(self) -> Dict:
         """SGD's state (the momentum buffers) and the update count."""

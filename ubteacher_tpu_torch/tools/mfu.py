@@ -5,7 +5,8 @@ student forward and backward over labeled strong + weak and unlabeled
 strong, SGD) by running the port's own `mutual_step` under
 `torch.utils.flop_counter.FlopCounterMode`: convolutions and matmuls
 counted from their shapes, 2 x MAC, forward and backward as autograd runs
-them. The hand-written kernels count 0, as the Pallas calls do in XLA's
+them (on a card the step runs eagerly under the mode, not as a replay of
+its CUDA graph: engine/step_graph.py). The hand-written kernels count 0, as the Pallas calls do in XLA's
 cost analysis; elementwise work counts 0 (the JAX package's count, from
 pre-optimization HLO, holds it). Cross-checked against an analytic estimate
 scaled from the published ResNet-50 cost (the JAX tool's), and written to

@@ -8,7 +8,10 @@ mutual steps under torch.profiler: the device's busy time per step (the sum
 of its kernel and copy rows), the share idle against the wall, the kernel
 launches per step (all, and the port's own kernels by their counters), the
 rows summed by PROFILE_GROUPS and the largest PROFILE_ROWS rows. --out
-keeps the Chrome trace (open it in chrome://tracing or Perfetto).
+keeps the Chrome trace (open it in chrome://tracing or Perfetto). On a
+card the FCOS steps after the boundary step are replays of its CUDA graph
+(engine/step_graph.py), as in training: the rows are the graph's kernels,
+and the counters add what a replay launches.
 
     python -m ubteacher_tpu_torch.tools.profile_step [--rcnn] [--batch 8] \\
         [--canvas 768 1344] [--steps 3] [--out trace.json] [--cpu] [--opts KEY VALUE ...]
@@ -61,13 +64,15 @@ def group_rows(rows) -> dict:
 def device_rows(prof, steps: int, on_device: bool = True):
     """The profile's rows per step, largest first: [(ms, calls, name)].
     On a card the device's own rows (kernels, copies; an op's row repeats
-    its kernels, so only these are summed); for a CPU run (on_device False)
-    the ops' own CPU time."""
+    its kernels, so only these are summed; a span, `ubt.*`, shows on the
+    device's timeline too, as a user annotation over its kernels, and is
+    no row of work); for a CPU run (on_device False) the ops' own CPU time."""
     from torch.autograd import DeviceType
 
     if on_device:
         rows = [(e.self_device_time_total / steps / 1e3, e.count / steps, e.key) for e in prof.key_averages()
-                if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+                if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+                and not (getattr(e, "is_user_annotation", False) or e.key.startswith("ubt."))]
     else:
         rows = [(e.self_cpu_time_total / steps / 1e3, e.count / steps, e.key)
                 for e in prof.key_averages() if e.self_cpu_time_total > 0]
